@@ -1,0 +1,566 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (pygrid_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+It takes no arguments and runs every phase, in order; any failure raises
+and the script exits non-zero:
+
+1. build    — compile the CUDA kernels from pygrid_tpu_torch/csrc (nvcc,
+              sm_90a, one process per source) and print ptxas' report;
+2. kernels  — hold each kernel (flash forward, dK/dV, dQ) against its plain
+              PyTorch version on the card: bf16 and f32, causal and not,
+              aligned and ragged shapes;
+3. timing   — each kernel's median time at the main path's shape, beside
+              its bound, its plain version and the PyTorch library call;
+4. rounds   — the main path: fused FedAvg rounds of the federated
+              transformer at full width (bench_fed_transformer's config),
+              with each kernel's launches counted;
+5. small    — one opaque make_round round, one local_steps=2 fused round
+              and the MLP FedAvg round, each with its launches counted;
+6. parity   — small fused rounds on the card against the same rounds on
+              the CPU through the plain versions, in f32 and in the main
+              path's bf16 (bf16 compute, bf16 CE backward), and the CE
+              head's f32-output bf16 product at the main path's three
+              shapes against the f64 product.
+
+Then it prints the kernels line, the card's name and power limit, and as
+its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX
+or of pygrid_tpu, and exits non-zero without a GPU.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+# bf16 results are compared at atol 1e-2 + rtol 1e-2: P and dS are rounded
+# to bf16 at points that differ between the online-softmax kernel and the
+# one-pass plain version, and one bf16 ulp is 2^-8 to 2^-7 relative. On an
+# H100 the worst errors seen were 3.9e-3 (forward out), 7.8e-3 (dK/dV, on
+# elements of magnitude >= 1, where the bound is >= 2e-2) and 2.0e-3 (dQ),
+# all at the main path's shape. f32 at atol 1e-4 + rtol 1e-4 (f32 sums over
+# up to 512 terms in another order; worst seen 9.5e-7).
+TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
+
+# the main path's attention shape: bench_fed_transformer's config, K=8
+# clients x B=4 sequences folded into 32 rows, L=512, 4 heads of 128
+MAIN_SHAPE = (32, 512, 4, 128)
+
+# NVIDIA H100 SXM data sheet: dense bf16 tensor-core rate, f32 CUDA-core
+# rate, HBM3 bandwidth
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES = 3.35e12
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+# --------------------------------------------------------------------------
+# phase 1: build
+# --------------------------------------------------------------------------
+
+
+def phase_build() -> None:
+    from pygrid_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    per_lib = build.build_all()
+    total = time.perf_counter() - t0
+    print(f"[build] {total:.2f} s wall; per source: "
+          + ", ".join(f"{n} {s:.2f} s" for n, s in per_lib.items()))
+    for name in build.LIBRARIES:
+        build.library(name)
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                print(f"[build] {name}: {line.strip()}")
+
+
+# --------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# --------------------------------------------------------------------------
+
+
+def _inputs(shape_q, Lk, dtype, seed):
+    B, Lq, H, D = shape_q
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(L):
+        return torch.randn((B, L, H, D), generator=g, device="cuda").to(dtype)
+
+    return rnd(Lq), rnd(Lk), rnd(Lk), rnd(Lq)
+
+
+def _err(got, ref, dtype, what):
+    atol, rtol = TOL[dtype]
+    got, ref = got.float(), ref.float()
+    check(bool(torch.isfinite(got).all()), f"{what}: non-finite values")
+    err = (got - ref).abs()
+    bad = err > atol + rtol * ref.abs()
+    check(not bool(bad.any()),
+          f"{what}: {int(bad.sum())} elements outside atol {atol} rtol {rtol}, "
+          f"max abs err {float(err.max()):.3e}")
+    return float(err.max())
+
+
+def _poison() -> None:
+    """Leave NaN in the allocator's free blocks, so an output element a
+    kernel fails to write cannot pass by holding an earlier result."""
+    torch.full((64 * 2**20,), float("nan"), device="cuda")
+    torch.cuda.synchronize()
+
+
+def compare_case(shape_q, Lk, dtype, causal, seed=0):
+    """Each kernel against its plain version on the same inputs; returns
+    the max abs error of each."""
+    from pygrid_tpu_torch.parallel import flash_attention as fa
+
+    q, k, v, do = _inputs(shape_q, Lk, dtype, seed)
+    scale = shape_q[-1] ** -0.5
+    out_r, lse_r = fa.flash_fwd_reference(q, k, v, causal, scale)
+    _poison()
+    out_k, lse_k = fa.flash_fwd(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    tag = f"{tuple(shape_q)} Lk={Lk} {str(dtype)[6:]} causal={causal}"
+    errs = {
+        "flash_fwd": max(
+            _err(out_k, out_r, dtype, f"fwd out {tag}"),
+            _err(lse_k, lse_r, torch.float32, f"fwd lse {tag}"),
+        )
+    }
+    delta = fa.softmax_delta(out_r, do)
+    dk_r, dv_r = fa.flash_bwd_dkv_reference(q, k, v, do, lse_r, delta, causal, scale)
+    _poison()
+    dk_k, dv_k = fa.flash_bwd_dkv(q, k, v, do, lse_r, delta, causal, scale)
+    torch.cuda.synchronize()
+    errs["flash_bwd_dkv"] = max(
+        _err(dk_k, dk_r, dtype, f"dk {tag}"), _err(dv_k, dv_r, dtype, f"dv {tag}")
+    )
+    dq_r = fa.flash_bwd_dq_reference(q, k, v, do, lse_r, delta, causal, scale)
+    _poison()
+    dq_k = fa.flash_bwd_dq(q, k, v, do, lse_r, delta, causal, scale)
+    torch.cuda.synchronize()
+    errs["flash_bwd_dq"] = _err(dq_k, dq_r, dtype, f"dq {tag}")
+    print(f"[kernels] {tag}: " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
+    return errs
+
+
+def phase_kernels() -> dict:
+    cases = [
+        ((2, 512, 4, 128), 512, True),
+        ((2, 512, 4, 128), 512, False),
+        ((2, 200, 3, 64), 200, True),
+        ((1, 100, 2, 64), 300, False),
+        ((1, 77, 2, 40), 77, True),
+    ]
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape_q, Lk, causal in cases:
+            compare_case(shape_q, Lk, dtype, causal)
+    # the main path's own shape and dtype: these errors go into the JSON line
+    return compare_case(MAIN_SHAPE, MAIN_SHAPE[1], torch.bfloat16, True, seed=1)
+
+
+# --------------------------------------------------------------------------
+# phase 3: timing
+# --------------------------------------------------------------------------
+
+
+def time_ms(fn, iters=20, repeats=5) -> float:
+    """Median over ``repeats`` of the mean time of ``iters`` back-to-back
+    calls, by CUDA events, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / iters)
+    return statistics.median(samples)
+
+
+def causal_pairs(Lq, Lk, causal):
+    return Lq * (Lq + 1) // 2 if causal else Lq * Lk
+
+
+def bounds(shape, dtype, causal):
+    """Least time (ms) of each kernel's work on these inputs: each input
+    read once and each output written once over the HBM rate, and the
+    products the mask leaves live over the peak rate of the dtype."""
+    B, L, H, D = shape
+    pairs = B * H * causal_pairs(L, L, causal)
+    t = B * L * H * D * torch.tensor([], dtype=dtype).element_size()  # one [B,L,H,D]
+    row = B * H * L * 4  # one f32 [B*H, L] vector (lse or delta)
+    work = {
+        # S = QK^T, O = PV
+        "flash_fwd": (4 * D * pairs, 3 * t + t + row),
+        # S^T, dP^T, dV = P^T dO, dK = dS^T Q; reads q, dO, k, v, lse, delta
+        "flash_bwd_dkv": (8 * D * pairs, 4 * t + 2 * row + 2 * t),
+        # S, dP, dQ = dS K
+        "flash_bwd_dq": (6 * D * pairs, 4 * t + 2 * row + t),
+    }
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        tf, tb = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+        out[name] = (max(tf, tb), "operations" if tf > tb else "bytes", flops, nbytes)
+    return out
+
+
+def phase_timing() -> dict:
+    import torch.nn.functional as F
+
+    from pygrid_tpu_torch.parallel import flash_attention as fa
+
+    dtype, causal = torch.bfloat16, True
+    q, k, v, do = _inputs(MAIN_SHAPE, MAIN_SHAPE[1], dtype, seed=2)
+    scale = MAIN_SHAPE[-1] ** -0.5
+    out, lse = fa.flash_fwd(q, k, v, causal, scale)
+    delta = fa.softmax_delta(out, do)
+    ms = {
+        "flash_fwd": (
+            time_ms(lambda: fa.flash_fwd(q, k, v, causal, scale)),
+            time_ms(lambda: fa.flash_fwd_reference(q, k, v, causal, scale), iters=5),
+        ),
+        "flash_bwd_dkv": (
+            time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)),
+            time_ms(lambda: fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal, scale),
+                    iters=5),
+        ),
+        "flash_bwd_dq": (
+            time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)),
+            time_ms(lambda: fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale),
+                    iters=5),
+        ),
+    }
+    # the library yardstick: scaled_dot_product_attention in [B, H, L, D],
+    # timed here only; the port never calls it
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    sdpa_bwd = time_ms(
+        lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), dot, retain_graph=True)
+    )
+    library = {"flash_fwd": sdpa_fwd, "flash_bwd_dkv": sdpa_bwd, "flash_bwd_dq": sdpa_bwd}
+    result = {}
+    for name, (bound, by, flops, nbytes) in bounds(MAIN_SHAPE, dtype, causal).items():
+        kernel_ms, plain_ms = ms[name]
+        result[name] = {
+            "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library[name],
+        }
+        print(f"[timing] {name} {MAIN_SHAPE} bf16 causal: kernel {kernel_ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), "
+              f"plain {plain_ms:.4f} ms, library {library[name]:.4f} ms"
+              + (" (SDPA backward, all of dq/dk/dv)" if name != "flash_fwd" else " (SDPA forward)"))
+    return result
+
+
+# --------------------------------------------------------------------------
+# phases 4-6: the rounds
+# --------------------------------------------------------------------------
+
+KERNELS = {
+    # name: (source, the TPU kernel it replaces)
+    "flash_fwd": ("pygrid_tpu_torch/csrc/flash_fwd.cu",
+                  "pygrid_tpu/parallel/pallas_attention.py:61"),
+    "flash_bwd_dkv": ("pygrid_tpu_torch/csrc/flash_bwd.cu",
+                      "pygrid_tpu/parallel/pallas_attention.py:275"),
+    "flash_bwd_dq": ("pygrid_tpu_torch/csrc/flash_bwd.cu",
+                     "pygrid_tpu/parallel/pallas_attention.py:355"),
+}
+
+
+def full_config(n_layers=4):
+    """bench_fed_transformer's configuration (bench.py): vocab 8192,
+    d_model 512, 4 heads of 128, d_ff 2048, max_len 512."""
+    from pygrid_tpu_torch.models import transformer
+
+    return transformer.TransformerConfig(
+        vocab=8192, d_model=512, n_heads=4, n_layers=n_layers, d_ff=2048, max_len=512,
+    )
+
+
+def transformer_setup(cfg, K, B, device, seed=0):
+    from pygrid_tpu_torch.models import transformer
+
+    g = torch.Generator().manual_seed(seed)
+    params = transformer.init(cfg, generator=g, device=device)
+    X = torch.randint(0, cfg.vocab, (K, B, cfg.max_len), generator=g).to(device)
+    return params, X, torch.roll(X, -1, dims=-1)
+
+
+def counted(fn):
+    """Run ``fn`` with every kernel's launch count set to 0 just before;
+    returns (its result, the counts just after, wall seconds)."""
+    from pygrid_tpu_torch.parallel import flash_attention as fa
+
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, fa.launch_counts(), time.perf_counter() - t0
+
+
+def _finite(*xs) -> bool:
+    return all(bool(torch.isfinite(x).all()) for x in xs)
+
+
+def phase_rounds(n_rounds=3) -> dict:
+    """The main path: ``make_fused_rounds`` over the flash transformer at
+    full width, K=8 clients x B=4 sequences, bf16 compute and bf16 CE
+    backward, local_steps=1, lr 0.1 (bench.py bench_fed_transformer)."""
+    from functools import partial
+
+    from pygrid_tpu_torch.models import transformer
+    from pygrid_tpu_torch.parallel import flash_attention as fa
+    from pygrid_tpu_torch.parallel import make_fused_rounds
+
+    cfg, K, B = full_config(), 8, 4
+    params, X, y = transformer_setup(cfg, K, B, "cuda")
+    loss_fn = partial(
+        transformer.loss_and_acc, cfg=cfg, attn_fn=fa.flash_attention,
+        compute_dtype="bfloat16", ce_grad_dtype="bfloat16",
+    )
+    make_fused_rounds(loss_fn, n_rounds=1)(params, X, y, 0.1)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    (final, losses, accs), counts, secs = counted(
+        lambda: make_fused_rounds(loss_fn, n_rounds=n_rounds)(params, X, y, 0.1)
+    )
+    losses_l = [float(x) for x in losses]
+    ms_round = secs / n_rounds * 1e3
+    tok_s = K * B * cfg.max_len * n_rounds / secs
+    print(f"[rounds] {n_rounds} fused rounds, {cfg}, K={K} B={B}: losses {losses_l}, "
+          f"accs {[float(a) for a in accs]}")
+    print(f"[rounds] {ms_round:.3f} ms/round, {tok_s:.1f} tokens/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches {counts}")
+    check(_finite(losses, accs, *final), "main path: non-finite loss, acc or params")
+    check(losses_l[-1] < losses_l[0], f"main path: loss did not fall: {losses_l}")
+    for name, n in counts.items():
+        check(n == cfg.n_layers * n_rounds,
+              f"main path: {name} launched {n} times, expected {cfg.n_layers} per round")
+    # the host clock varies between calls (the host's cores are shared):
+    # single rounds timed one by one show the spread inside this call
+    one_round = make_fused_rounds(loss_fn, n_rounds=1)
+    samples = [counted(lambda: one_round(params, X, y, 0.1))[2] * 1e3 for _ in range(5)]
+    med = statistics.median(samples)
+    print(f"[rounds] 5 single rounds: {[round(s, 3) for s in samples]} ms, median "
+          f"{med:.3f} ms/round, {K * B * cfg.max_len / med * 1e3:.1f} tokens/s")
+    profile_round(lambda: one_round(params, X, y, 0.1))
+    return counts
+
+
+def profile_round(fn, top=12) -> None:
+    """Device time by kernel over one more round under torch.profiler (after
+    the counted run, so its launches count nowhere), and the device's idle
+    share of the round's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if busy_us == 0:
+        print("[profile] the profiler saw no device time: not measured")
+        return
+    print(f"[profile] one round: wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.4f}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.self_device_time_total / busy_us:7.2%} x{e.count:<4d} {e.key[:100]}")
+
+
+def phase_small() -> None:
+    """One opaque ``make_round`` round and one ``local_steps=2`` fused round
+    of the flash transformer at full width and depth 2, then the MLP
+    FedAvg round of ``__graft_entry__.entry()`` (K=8, B=16)."""
+    from functools import partial
+
+    from pygrid_tpu_torch.models import mlp, transformer
+    from pygrid_tpu_torch.parallel import flash_attention as fa
+    from pygrid_tpu_torch.parallel import make_fused_round, make_round
+
+    cfg, K, B = full_config(n_layers=2), 8, 4
+    params, X, y = transformer_setup(cfg, K, B, "cuda", seed=1)
+    kw = dict(cfg=cfg, attn_fn=fa.flash_attention, compute_dtype="bfloat16",
+              ce_grad_dtype="bfloat16")
+    paths = {
+        # (round, launches of each kernel: one step per client per layer)
+        "opaque make_round": (make_round(transformer.make_training_step(**kw)), K),
+        "fused local_steps=2": (
+            make_fused_round(partial(transformer.loss_and_acc, **kw), local_steps=2,
+                             carry_dtype=torch.bfloat16), 2 * K),
+    }
+    for name, (round_fn, steps) in paths.items():
+        (new_p, loss, acc), counts, secs = counted(lambda: round_fn(params, X, y, 0.1))
+        print(f"[small] {name}, depth {cfg.n_layers}: loss {float(loss):.5f} acc "
+              f"{float(acc):.5f}, {secs * 1e3:.1f} ms, launches {counts}")
+        check(_finite(loss, acc, *new_p), f"{name}: non-finite result")
+        for kname, n in counts.items():
+            check(n == steps * cfg.n_layers,
+                  f"{name}: {kname} launched {n} times, expected {steps * cfg.n_layers}")
+
+    g = torch.Generator().manual_seed(2)
+    mparams = mlp.init(generator=g, device="cuda")
+    mX = torch.randn((8, 16, 784), generator=g).cuda()
+    my = torch.nn.functional.one_hot(torch.randint(0, 10, (8, 16), generator=g), 10).float().cuda()
+    (new_p, loss, acc), counts, secs = counted(
+        lambda: make_round(mlp.training_step)(mparams, mX, my, 0.1))
+    print(f"[small] MLP make_round K=8 B=16: loss {float(loss):.5f} acc {float(acc):.5f}, "
+          f"{secs * 1e3:.2f} ms, launches {counts}")
+    check(_finite(loss, acc, *new_p), "MLP round: non-finite result")
+
+
+# card against CPU, per compute dtype: (parameter limit, losses' rtol).
+# f32: the largest parameter difference, as the sums differ only in order
+# (seen on an H100: 1.2e-7, losses 8.4e-8). bf16: the norm of the
+# parameters' difference over the norm of the CPU's update to them. Every
+# product there rounds to bf16 after an f32 sum in another order and the
+# online softmax rounds P at other points, so the card's bf16 round and the
+# CPU's differ at the scale of bf16's own rounding noise, which the phase
+# prints beside them as bf16 against f32 on the CPU (seen on an H100:
+# 5.7e-3, losses 8.1e-5). The limits are about twice those readings: they
+# catch a wrong layout, a broken CE head or a broken kernel, not a quiet
+# f32 run, which the f32-output product check below covers where it matters.
+PARITY_TOL = {None: (1e-4, 1e-5), "bfloat16": (1.2e-2, 2e-4)}
+
+
+def phase_parity() -> None:
+    """Two fused rounds of a small transformer through the kernels on the
+    card against the same rounds on the CPU through the plain versions,
+    in f32 and in the main path's bf16 (bf16 compute, bf16 CE backward),
+    whose bf16 GEMMs, f32-output products and CE head otherwise run on the
+    card unchecked. Then the CE head's f32-output product on its own."""
+    from functools import partial
+
+    from pygrid_tpu_torch.models import transformer
+    from pygrid_tpu_torch.parallel import flash_attention as fa
+    from pygrid_tpu_torch.parallel import make_fused_rounds
+
+    cfg = transformer.TransformerConfig(
+        vocab=256, d_model=128, n_heads=2, n_layers=2, d_ff=256, max_len=96)
+    params, X, y = transformer_setup(cfg, 2, 2, "cpu", seed=3)
+
+    def update_err(got, want):
+        """|got - want| over |want's update|, as norms over all params."""
+        return float(torch.cat([(a - b).flatten() for a, b in zip(got, want)]).norm()
+                     / torch.cat([(b - p0).flatten() for b, p0 in zip(want, params)]).norm())
+
+    cpu = {}
+    for cd, (p_tol, l_tol) in PARITY_TOL.items():
+        loss_fn = partial(transformer.loss_and_acc, cfg=cfg, attn_fn=fa.flash_attention,
+                          compute_dtype=cd, ce_grad_dtype=cd)
+        rounds = make_fused_rounds(loss_fn, n_rounds=2)
+        p_cpu, l_cpu, _ = cpu[cd] = rounds(params, X, y, 0.1)
+        (p_gpu, l_gpu, _), counts, _ = counted(
+            lambda: rounds([p.cuda() for p in params], X.cuda(), y.cuda(), 0.1))
+        check(all(n == 2 * cfg.n_layers for n in counts.values()),
+              f"parity: the card run did not go through the kernels: {counts}")
+        check(_finite(l_gpu, *p_gpu), f"parity {cd}: non-finite result on the card")
+        p_gpu = [p.cpu() for p in p_gpu]
+        l_err = float(((l_gpu.cpu() - l_cpu).abs() / l_cpu.abs()).max())
+        p_abs = max(float((a - b).abs().max()) for a, b in zip(p_gpu, p_cpu))
+        p_rel = update_err(p_gpu, p_cpu)
+        print(f"[parity] {cd or 'float32'} {cfg}: card vs CPU max loss rel err "
+              f"{l_err:.3e}, max param abs err {p_abs:.3e}, update rel err {p_rel:.3e}")
+        p_err = p_abs if cd is None else p_rel
+        check(p_err <= p_tol and l_err <= l_tol,
+              f"parity {cd}: card and CPU rounds disagree beyond ({p_tol}, {l_tol})")
+    (p16, l16, _), (p32, l32, _) = cpu["bfloat16"], cpu[None]
+    print(f"[parity] bf16 vs f32, both on the CPU: max loss rel diff "
+          f"{float(((l16 - l32).abs() / l32.abs()).max()):.3e}, update rel diff "
+          f"{update_err(p16, p32):.3e}")
+    check_dot_f32(full_config())
+
+
+def check_dot_f32(cfg, seed=4) -> None:
+    """``_dot_f32`` on bf16 operands takes the card's native product with
+    an f32 output (``torch.mm(..., out_dtype=float32)``), at the main
+    path's three shapes: the logits [N, d] x [d, vocab] and the CE head's
+    two gradient products, the last with a transposed left operand, as
+    ``dlogits.T``. Against the f64 product its error must stay under 2^-13
+    of the largest value, 1/16 of a bf16 half-ulp there: a result rounded
+    through bf16 would miss that 16-fold, an f32-accumulated one meets it
+    with room (seen on an H100: 9.7e-5, 4.9e-3 and 1.5e-2 at k = 512, 8192
+    and 16384, against limits of 1.8e-2, 6.4e-2 and 7.9e-2; the widened
+    f32 product's errors were 8.2e-5, 1.6e-3 and 1.5e-3)."""
+    from pygrid_tpu_torch.models import transformer
+
+    N = 8 * 4 * cfg.max_len  # K clients x B sequences x L tokens
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for m, k, n, t in ((N, cfg.d_model, cfg.vocab, False),
+                       (N, cfg.vocab, cfg.d_model, False),
+                       (cfg.vocab, N, cfg.d_model, True)):
+        a = torch.randn((k, m) if t else (m, k), generator=g, device="cuda")
+        a = (a.T if t else a).to(torch.bfloat16)
+        b = torch.randn((k, n), generator=g, device="cuda").to(torch.bfloat16)
+        got = transformer._dot_f32(a, b)
+        exact = a.double() @ b.double()
+        f32_err = float((a.float() @ b.float() - exact).abs().max())
+        torch.cuda.synchronize()
+        check(got.dtype == torch.float32 and got.shape == (m, n), "dot_f32: wrong result")
+        err, limit = float((got - exact).abs().max()), 2**-13 * float(exact.abs().max())
+        print(f"[parity] dot_f32 bf16 [{m}, {k}] x [{k}, {n}] -> f32: max abs err vs f64 "
+              f"{err:.3e} (limit {limit:.3e}), the f32 product's {f32_err:.3e}")
+        check(err <= limit, "dot_f32 is not an f32-accumulated product")
+
+
+# --------------------------------------------------------------------------
+
+
+def main() -> int:
+    check(torch.cuda.is_available(), "no CUDA GPU: chip_smoke.py runs on the card only")
+    import pygrid_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products stay f32
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+
+    phase_build()
+    errs = phase_kernels()
+    timing = phase_timing()
+    launches = phase_rounds()
+    phase_small()
+    phase_parity()
+
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": errs[name], **timing[name],
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

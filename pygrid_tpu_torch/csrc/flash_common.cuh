@@ -1,0 +1,73 @@
+// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+//
+// Layout contract with the Python wrappers (pygrid_tpu_torch/parallel/
+// flash_attention.py): q, k, v and dO are [B, L, H, D] views whose last
+// dimension is contiguous; the wrapper passes the batch, sequence and head
+// strides in elements, so the [B, L, H, D] -> [B*H, L, D] transpose copy of
+// the TPU path never happens. Outputs (out, dq, dk, dv) are freshly
+// allocated contiguous [B, L, H, D]; the per-row statistics (lse, delta)
+// are contiguous f32 [B*H, Lq].
+//
+// Every block computes on f32 copies of its tiles in shared memory with
+// plain f32 FMA. Ragged edges are handled by masking inside the kernel:
+// rows past L load as zero and are never written, columns past D are
+// never read, so nothing is padded in device memory.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace pgt {
+
+constexpr int TILE = 64;       // query rows and key rows per tile
+constexpr int MAX_D = 128;     // widest head dim a thread's registers hold
+constexpr int THREADS = 256;   // 16 x 16 threads, 4 x 4 outputs each
+constexpr int JD = MAX_D / 16; // head-dim columns per thread
+constexpr int SPITCH = TILE + 1;  // row pitch of a [TILE, TILE] score tile
+constexpr float NEG = -1e30f;  // finite "-inf" of the running max
+
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+template <typename T> __device__ __forceinline__ float to_f(T x);
+template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even
+}
+
+// A value as the operand of a product in T: the TPU kernels cast P and dS
+// to the input dtype before their second dot, and so do these.
+template <typename T> __device__ __forceinline__ float round_to(float x) {
+  return to_f<T>(from_f<T>(x));
+}
+
+// Row pitch of a [TILE, D] tile in shared memory: the +1 puts neighbouring
+// rows in neighbouring banks for the column-wise reads of the products.
+__host__ __device__ __forceinline__ int pitch_of(int D) { return D + 1; }
+
+// Copy rows [row0, row0 + TILE) of one (b, h) slice into shared memory as
+// f32; rows at or past L read as zero.
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, int pitch, const T* src,
+                                          long long row_stride, int row0, int L, int D) {
+  for (int i = threadIdx.x; i < TILE * D; i += THREADS) {
+    const int r = i / D;
+    const int c = i - r * D;
+    const int row = row0 + r;
+    dst[r * pitch + c] = row < L ? to_f<T>(src[(long long)row * row_stride + c]) : 0.f;
+  }
+}
+
+// rows [row0, row0 + TILE) of a contiguous f32 [L] vector; past L reads 0
+__device__ __forceinline__ void load_rows(float* dst, const float* src, int row0, int L) {
+  for (int i = threadIdx.x; i < TILE; i += THREADS) {
+    dst[i] = row0 + i < L ? src[row0 + i] : 0.f;
+  }
+}
+
+}  // namespace pgt
