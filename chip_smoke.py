@@ -22,7 +22,20 @@ and the script exits non-zero:
               the CPU through the plain versions, in f32 and in the main
               path's bf16 (bf16 compute, bf16 CE backward), and the CE
               head's f32-output bf16 product at the main path's three
-              shapes against the f64 product.
+              shapes against the f64 product;
+7. ring     — the Z_2^64 ring-matmul kernel against its plain version
+              (torch.equal: ring arithmetic is exact) and numpy uint64:
+              ragged, all-ones, batched, stride-0 and two-batch-axis
+              operands and the SMPC path's two shapes;
+8. ring timing — its median time at those two shapes, beside its bound,
+              its plain version and torch.matmul on int64 CUDA tensors;
+9. smpc     — the SMPC path: batched_beaver at bench_smpc's two
+              configurations (B=512 of 3-party 64x64, B=8 of 512x512),
+              rounds held to the exact product, 4 ring launches a round;
+10. mlp     — the encrypted 784-392-10 MLP (affine, square, affine) at
+              batch 256 through fix_prec(...).share(...): decoded against
+              the float64 forward, and its shares bit-identical to a CPU
+              run given the same shares, triples and truncation pairs.
 
 Then it prints the kernels line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX
@@ -37,6 +50,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # bf16 results are compared at atol 1e-2 + rtol 1e-2: P and dS are rounded
@@ -286,6 +300,8 @@ KERNELS = {
                       "pygrid_tpu/parallel/pallas_attention.py:275"),
     "flash_bwd_dq": ("pygrid_tpu_torch/csrc/flash_bwd.cu",
                      "pygrid_tpu/parallel/pallas_attention.py:355"),
+    "ring_matmul": ("pygrid_tpu_torch/csrc/ring_matmul.cu",
+                    "pygrid_tpu/smpc/pallas_kernels.py:66"),
 }
 
 
@@ -308,17 +324,29 @@ def transformer_setup(cfg, K, B, device, seed=0):
     return params, X, torch.roll(X, -1, dims=-1)
 
 
-def counted(fn):
-    """Run ``fn`` with every kernel's launch count set to 0 just before;
-    returns (its result, the counts just after, wall seconds)."""
+def _counters():
     from pygrid_tpu_torch.parallel import flash_attention as fa
+    from pygrid_tpu_torch.smpc import ring_matmul as rm
 
+    return {"flash": fa, "ring": rm}
+
+
+def counted(fn, path="flash"):
+    """Run ``fn`` with every kernel's launch count set to 0 just before;
+    returns (its result, the counts of ``path``'s kernels just after, wall
+    seconds). The other kernels must not have launched."""
+    counters = _counters()
     torch.cuda.synchronize()
-    fa.reset_launch_counts()
+    for c in counters.values():
+        c.reset_launch_counts()
     t0 = time.perf_counter()
     out = fn()
     torch.cuda.synchronize()
-    return out, fa.launch_counts(), time.perf_counter() - t0
+    secs = time.perf_counter() - t0
+    others = {k: n for name, c in counters.items() if name != path
+              for k, n in c.launch_counts().items()}
+    check(not any(others.values()), f"the {path} path launched other kernels: {others}")
+    return out, counters[path].launch_counts(), secs
 
 
 def _finite(*xs) -> bool:
@@ -530,6 +558,294 @@ def check_dot_f32(cfg, seed=4) -> None:
 
 
 # --------------------------------------------------------------------------
+# phases 7-10: the SMPC plane and its ring-matmul kernel
+# --------------------------------------------------------------------------
+
+# H100 SXM data sheet: dense int8 tensor-core rate. The ring matmul's least
+# known work is its 36 u8 limb products (the reference's scheme) there.
+PEAK_INT8_OPS = 1979e12
+RING_LIMB_PRODUCTS = 36
+
+# the main path's two Beaver configurations (bench.py bench_smpc): B rounds
+# of P-party [N, N] @ [N, N] ring matmuls
+SMPC_CONFIGS = ((512, 3, 64), (8, 3, 512))
+PARTIES = ("alice", "bob", "charlie")
+
+# the encrypted MLP's decoded output against the float64 plaintext forward:
+# max abs error. The same inputs through the JAX package on the CPU meet
+# 3.451159e-02 at worst over 5 seeds of shares and triples (3.15e-2 to
+# 3.45e-2: 1e-3 encodings of 784 and 392 terms and two truncations, against
+# outputs up to 5.44; the slow test test_mlp_limit_is_what_the_jax_package_meets
+# in tests/test_torch_smpc.py reproduces it); the limit is twice it.
+MLP_JAX_ERR = 3.451159e-02
+MLP_ATOL = 2 * MLP_JAX_ERR
+
+
+def _np_u64_matmul(a, b):
+    with np.errstate(over="ignore"):
+        return np.matmul(a, b)
+
+
+def _ring_np(rng, shape):
+    return rng.integers(0, 2**64, size=shape, dtype=np.uint64)
+
+
+def check_ring(a, b, tag, truth, truth_at=()):
+    """The kernel against its plain version on the card, bit for bit, and
+    against the numpy uint64 product ``truth`` of the output slice
+    ``truth_at``; returns the largest |kernel - plain| (0 when it passes)."""
+    from pygrid_tpu_torch.smpc import ring as R
+    from pygrid_tpu_torch.smpc import ring_matmul as rm
+
+    ref = rm.ring_matmul_reference(a, b)
+    _poison()
+    got = rm.ring_matmul_kernel(a, b)
+    torch.cuda.synchronize()
+    check(got.shape == ref.shape, f"ring kernel {tag}: shape {tuple(got.shape)}")
+    mismatches = int((got != ref).sum())
+    check(mismatches == 0, f"ring kernel {tag}: {mismatches} elements differ from the plain version")
+    check(np.array_equal(R.from_ring(got[truth_at]), truth),
+          f"ring kernel {tag}: differs from numpy uint64")
+    where = f" (batch element {truth_at})" if truth_at != () else ""
+    print(f"[ring] {tag}: kernel == plain == numpy{where}")
+    return int((got - ref).abs().max())
+
+
+def ring_main_shapes():
+    """The two main-path launch shapes: (B, M, K, N)."""
+    return [(B, N, N, N) for B, _, N in SMPC_CONFIGS]
+
+
+def phase_ring_kernel() -> int:
+    """The ring-matmul kernel at the listed shapes: square and ragged 2-D,
+    all-ones operands (the most carries), batched, a stride-0 broadcast
+    batch, two batch axes with a stride-0 one (the party axis of a batched
+    Beaver round), a transposed operand, and the main path's two shapes."""
+    from pygrid_tpu_torch.smpc import ring as R
+
+    rng = np.random.default_rng(7)
+    dev = "cuda"
+    worst = 0
+    for sa, sb in (((1, 1), (1, 1)), ((4, 8), (8, 4)), ((130, 600), (600, 70)),
+                   ((128, 128), (128, 128)), ((3, 8, 8), (3, 8, 8)), ((4, 9, 130), (4, 130, 5))):
+        a, b = _ring_np(rng, sa), _ring_np(rng, sb)
+        worst = max(worst, check_ring(R.to_ring(a, dev), R.to_ring(b, dev), f"{sa} @ {sb}",
+                                      _np_u64_matmul(a, b)))
+    ones = np.full((8, 1600), 2**64 - 1, dtype=np.uint64)
+    worst = max(worst, check_ring(R.to_ring(ones, dev), R.to_ring(ones.T.copy(), dev),
+                                  "all-ones (8, 1600) @ (1600, 8)", _np_u64_matmul(ones, ones.T)))
+    d, b = _ring_np(rng, (40, 33)), _ring_np(rng, (5, 33, 21))
+    worst = max(worst, check_ring(
+        R.to_ring(d, dev).expand(5, 40, 33), R.to_ring(b, dev), "stride-0 batch (5, 40, 33) @ (5, 33, 21)",
+        _np_u64_matmul(np.broadcast_to(d, (5, 40, 33)), b)))
+    d, b = _ring_np(rng, (2, 65, 64)), _ring_np(rng, (2, 3, 66, 64))
+    worst = max(worst, check_ring(
+        R.to_ring(d, dev).unsqueeze(1).expand(2, 3, 65, 64), R.to_ring(b, dev).transpose(-1, -2),
+        "two batch axes, stride-0 parties, transposed b (2, 3, 65, 64) @ (2, 3, 64, 66)",
+        _np_u64_matmul(np.broadcast_to(d[:, None], (2, 3, 65, 64)), b.swapaxes(-1, -2))))
+    for B, M, K, N in ring_main_shapes():
+        a, b = _ring_np(rng, (B, M, K)), _ring_np(rng, (B, K, N))
+        # numpy's integer matmul is slow: the truth covers batch element 0
+        worst = max(worst, check_ring(R.to_ring(a, dev), R.to_ring(b, dev),
+                                      f"main shape ({B}, {M}, {K}) @ ({B}, {K}, {N})",
+                                      _np_u64_matmul(a[0], b[0]), truth_at=0))
+    return worst
+
+
+def ring_bound(B, M, K, N):
+    """(bound ms, what bounds it, int8 ops, bytes) of one ring matmul: the
+    36 u8 limb products at the int8 tensor-core rate against 8-byte
+    operands read once and the output written once."""
+    ops = RING_LIMB_PRODUCTS * 2 * B * M * N * K
+    nbytes = 8 * B * (M * K + K * N + M * N)
+    t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops > t_bytes else "bytes", ops, nbytes
+
+
+def library_int64_matmul(a, b, ref):
+    """torch.matmul on int64 CUDA tensors, the one PyTorch call that could
+    compute the product: (its ms if it runs and is exact, else None; what
+    it did). The port never calls it. A RuntimeError here is the finding
+    (no int64 product on the card), not a failure of the phase."""
+    try:
+        out = torch.matmul(a, b)
+        torch.cuda.synchronize()
+    except RuntimeError as e:
+        return None, f"torch.matmul on int64 CUDA tensors raises: {str(e).splitlines()[0]}"
+    if not torch.equal(out, ref):
+        return None, "torch.matmul on int64 CUDA tensors runs but is not the exact ring product"
+    return time_ms(lambda: torch.matmul(a, b)), "torch.matmul on int64 CUDA tensors (exact)"
+
+
+def phase_ring_timing() -> dict:
+    """Median ms per launch of the kernel at the main path's two shapes,
+    beside the bound, the plain version and the library call. The JSON
+    line carries the [8, 512, 512] launch, where the main path spends most
+    of the kernel's time."""
+    from pygrid_tpu_torch.smpc import ring as R
+    from pygrid_tpu_torch.smpc import ring_matmul as rm
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    result = {}
+    for B, M, K, N in ring_main_shapes():
+        a = R.ring_random(g, (B, M, K))
+        b = R.ring_random(g, (B, K, N))
+        kernel_ms = time_ms(lambda: rm.ring_matmul_kernel(a, b))
+        plain_ms = time_ms(lambda: rm.ring_matmul_reference(a, b), iters=5)
+        lib_ms, lib_note = library_int64_matmul(a, b, rm.ring_matmul_reference(a, b))
+        bound, by, ops, nbytes = ring_bound(B, M, K, N)
+        result = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                  "library_ms": lib_ms}
+        print(f"[ring timing] ({B}, {M}, {K}) @ ({B}, {K}, {N}): kernel {kernel_ms:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}; {ops / 1e9:.2f} G int8 ops, {nbytes / 1e6:.1f} MB), "
+              f"{kernel_ms / bound:.1f}x the bound, {B * M * N * K / kernel_ms / 1e9:.3f} "
+              f"T 64-bit multiply-adds/s, plain {plain_ms:.4f} ms, library "
+              f"{'%.4f ms' % lib_ms if lib_ms is not None else 'none'} ({lib_note})")
+    return result
+
+
+def phase_smpc_rounds() -> int:
+    """The main path: ``batched_beaver`` at bench_smpc's two configurations
+    (B rounds of 3-party [N, N] @ [N, N], values in the uint32 range as
+    bench.py draws them), triples dealt on the card. The first round is
+    held to the plain product on the card and numpy on one element; then a
+    chain of rounds (each squaring the last) is timed, counted and checked
+    against the plain products. Returns the kernel's launches."""
+    from pygrid_tpu_torch.smpc import ring as R
+    from pygrid_tpu_torch.smpc import ring_matmul as rm
+    from pygrid_tpu_torch.smpc.kernels import batched_beaver, reconstruct_kernel, share_kernel
+
+    total = 0
+    for B, P, N in SMPC_CONFIGS:
+        g = torch.Generator(device="cuda").manual_seed(B)
+        x = torch.randint(0, 2**32, (B, N, N), generator=g, device="cuda")
+        x_sh = share_kernel(g, x, P, dim=1)
+        z, counts, secs = counted(lambda: batched_beaver(g, x_sh, x_sh), "ring")
+        opened = reconstruct_kernel(z, dim=1)
+        check(torch.equal(opened, rm.ring_matmul_reference(x, x)),
+              f"smpc B={B} N={N}: the first round does not open to x @ x mod 2^64")
+        x0 = R.from_ring(x[0])
+        check(np.array_equal(R.from_ring(opened[0]), _np_u64_matmul(x0, x0)),
+              f"smpc B={B} N={N}: round differs from numpy uint64")
+        check(counts["ring_matmul"] == 4,
+              f"smpc B={B} N={N}: {counts['ring_matmul']} ring launches in a round, expected 4")
+        total += counts["ring_matmul"]
+        print(f"[smpc] B={B} P={P} [{N}, {N}]: first round ({secs * 1e3:.3f} ms) opens to "
+              f"x @ x (plain, numpy element 0), {counts['ring_matmul']} launches")
+
+        n_rounds = 8
+
+        def chain():
+            s = x_sh
+            for _ in range(n_rounds):
+                s = batched_beaver(g, s, s)
+            return s
+
+        z, counts, secs = counted(chain, "ring")
+        want = x
+        for _ in range(n_rounds):
+            want = rm.ring_matmul_reference(want, want)
+        check(torch.equal(reconstruct_kernel(z, dim=1), want),
+              f"smpc B={B} N={N}: {n_rounds} chained rounds do not open to x^(2^{n_rounds})")
+        check(counts["ring_matmul"] == 4 * n_rounds,
+              f"smpc B={B} N={N}: {counts['ring_matmul']} launches in {n_rounds} rounds")
+        total += counts["ring_matmul"]
+        per = secs / n_rounds
+        print(f"[smpc] B={B} P={P} [{N}, {N}]: {n_rounds} chained rounds, {per * 1e3:.3f} ms/round, "
+              f"{B / per:.1f} Beaver matmuls/s, {counts['ring_matmul']} launches (4 per round)")
+        profile_round(lambda: batched_beaver(g, x_sh, x_sh), top=6)
+    return total
+
+
+def mlp_plaintext(seed=0, batch=256, sizes=(784, 392, 10)):
+    """The encrypted MLP's float64 inputs: x in [0, 1], He-normal weights,
+    biases in [-0.1, 0.1] broadcast to [batch, width] (shared pre-broadcast)."""
+    rng = np.random.default_rng(seed)
+    out = [rng.uniform(0.0, 1.0, (batch, sizes[0]))]
+    for n_in, n_out in zip(sizes[:-1], sizes[1:]):
+        out.append(rng.standard_normal((n_in, n_out)) * (2.0 / n_in) ** 0.5)
+        out.append(np.ascontiguousarray(
+            np.broadcast_to(rng.uniform(-0.1, 0.1, n_out), (batch, n_out))))
+    return out
+
+
+def mlp_forward(x, w1, b1, w2, b2):
+    """examples/encrypted_inference.py's CryptoNets-style MLP: affine →
+    square → affine; returns each step's output, the last is the MLP's."""
+    h = x @ w1 + b1
+    h2 = h * h
+    return [h, h2, h2 @ w2 + b2]
+
+
+def mlp_steps(batch=256, sizes=(784, 392, 10)):
+    """(op, shape_x, shape_y, truncated shape) of each Beaver round."""
+    d0, d1, d2 = sizes
+    return (("matmul", (batch, d0), (d0, d1), (batch, d1)),
+            ("mul", (batch, d1), (batch, d1), (batch, d1)),
+            ("matmul", (batch, d1), (d1, d2), (batch, d2)))
+
+
+def phase_encrypted_mlp() -> int:
+    """The encrypted 784→392→10 MLP forward at batch 256 through
+    ``fix_prec(...).share("alice", "bob", "charlie", crypto_provider=...)``.
+    (a) On the card with triples dealt there: the decoded output against the
+    float64 plaintext within MLP_ATOL, and 8 ring launches (two matmul
+    rounds: the triple's c, then d∘b, a∘e, d∘e). (b) The same input shares,
+    triples and truncation pairs, dealt on the CPU and injected through
+    ``strict_store`` providers, on the card and on the CPU: every step's
+    output shares bit-identical, and 6 launches on the card. Returns the
+    launches of (a)."""
+    from pygrid_tpu_torch.smpc import AdditiveSharingTensor, CryptoProvider, CryptoStore, fix_prec
+
+    plain = mlp_plaintext()
+    want = mlp_forward(*plain)[-1]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    provider = CryptoProvider(seed=5, device="cuda")
+    shared = [fix_prec(v).share(*PARTIES, crypto_provider=provider, generator=g, device="cuda")
+              for v in plain]
+    out, counts, secs = counted(lambda: mlp_forward(*shared)[-1], "ring")
+    got = out.get()
+    err = float(np.abs(got - want).max())
+    print(f"[mlp] encrypted 784-392-10 forward, batch 256, 3 parties, on the card: {secs * 1e3:.3f} ms, "
+          f"launches {counts}, decoded max abs err vs float64 {err:.4e} (limit {MLP_ATOL:.4e}; the "
+          f"JAX package on the CPU: {MLP_JAX_ERR:.4e}), plaintext max |y| {float(np.abs(want).max()):.3f}")
+    check(got.shape == want.shape and bool(np.isfinite(got).all()), "mlp: bad decoded output")
+    check(err <= MLP_ATOL, f"mlp: decoded output {err:.3e} from the plaintext, limit {MLP_ATOL:.3e}")
+    check(counts["ring_matmul"] == 8, f"mlp: {counts['ring_matmul']} ring launches, expected 8")
+
+    # (b) card against CPU on injected shares, triples and truncation pairs
+    scale = shared[0].encoder.scale
+    dealer = CryptoProvider(seed=6, device="cpu")
+    cpu_p = CryptoProvider(strict_store=True, device="cpu")
+    gpu_p = CryptoProvider(strict_store=True, device="cuda")
+    for op, sx, sy, ts in mlp_steps():
+        triple = dealer.triple(op, sx, sy, len(PARTIES))
+        pair = dealer.trunc_pair(ts, scale, len(PARTIES))
+        for prov, dev in ((cpu_p, "cpu"), (gpu_p, "cuda")):
+            prov.store.put(CryptoStore.key(op, sx, sy, len(PARTIES)), tuple(t.to(dev) for t in triple))
+            prov.store.put(CryptoStore.key("trunc", ts, (scale,), len(PARTIES)),
+                           tuple(t.to(dev) for t in pair))
+    g_cpu = torch.Generator().manual_seed(6)
+    cpu_in = [fix_prec(v).share(*PARTIES, crypto_provider=cpu_p, generator=g_cpu, device="cpu")
+              for v in plain]
+    gpu_in = [AdditiveSharingTensor(t.shares.cuda(), PARTIES, t.encoder, gpu_p) for t in cpu_in]
+    t0 = time.perf_counter()
+    cpu_out = mlp_forward(*cpu_in)
+    cpu_s = time.perf_counter() - t0
+    gpu_out, counts_b, secs_b = counted(lambda: mlp_forward(*gpu_in), "ring")
+    for i, (c, d) in enumerate(zip(cpu_out, gpu_out)):
+        check(torch.equal(d.shares.cpu(), c.shares),
+              f"mlp parity: step {i} output shares differ between the card and the CPU")
+    check(counts_b["ring_matmul"] == 6, f"mlp parity: {counts_b['ring_matmul']} launches, expected 6")
+    check(np.array_equal(gpu_out[-1].get(), cpu_out[-1].get()), "mlp parity: decoded outputs differ")
+    print(f"[mlp] injected shares, triples and truncation pairs: card ({secs_b * 1e3:.3f} ms, "
+          f"launches {counts_b}) and CPU ({cpu_s * 1e3:.1f} ms) output shares bit-identical "
+          f"at all 3 steps; decoded max abs err vs float64 "
+          f"{float(np.abs(gpu_out[-1].get() - want).max()):.4e}")
+    return counts["ring_matmul"]
+
+
+# --------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -547,6 +863,9 @@ def main() -> int:
     launches = phase_rounds()
     phase_small()
     phase_parity()
+    errs["ring_matmul"] = phase_ring_kernel()
+    timing["ring_matmul"] = phase_ring_timing()
+    launches["ring_matmul"] = phase_smpc_rounds() + phase_encrypted_mlp()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -8,9 +8,10 @@ anything of ``pygrid_tpu``.
 
 Ported so far: the federated transformer round — the transformer and MLP
 models, the FedAvg round builders (opaque and fused) and flash attention
-with its forward, dK/dV and dQ kernels. Entry points take ``device`` and
-default to ``"cuda"``; without a GPU they raise unless the caller passes
-``device="cpu"``.
+with its forward, dK/dV and dQ kernels — and the SMPC compute plane
+(:mod:`pygrid_tpu_torch.smpc`) with its Z_2^64 ring-matmul kernel. Entry
+points take ``device`` and default to ``"cuda"``; without a GPU they raise
+unless the caller passes ``device="cpu"``.
 """
 
 from pygrid_tpu_torch.device import resolve

@@ -32,7 +32,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _STRIDES = [_I] * 3
 
 #: library -> (source, {C entry: argtypes}); every entry returns its
@@ -53,6 +53,11 @@ LIBRARIES: dict[str, tuple[str, dict[str, list]]] = {
             "pgt_flash_bwd_dq": [_P] * 7 + [_I] * 5 + _STRIDES * 4
             + [_F, _I, _I, _P],
         },
+    ),
+    "ring_matmul": (
+        "ring_matmul.cu",
+        # a, b, c; B1, B2, M, N, K; four int64 strides of each operand
+        {"pgt_ring_matmul": [_P] * 3 + [_I] * 5 + [_L] * 12 + [_P]},
     ),
 }
 
@@ -154,3 +159,13 @@ def check(status: int, what: str) -> None:
     """Raise if a C entry reported a CUDA error for its launch."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {status}")
+
+
+def launch(name: str, entry: str, device, *args) -> None:
+    """Call C entry ``entry`` of library ``name`` on ``device``'s current
+    stream (the kernel does not synchronise) and raise if its launch failed."""
+    import torch
+
+    with torch.cuda.device(device):
+        fn = getattr(library(name), entry)
+        check(fn(*args, torch.cuda.current_stream(device).cuda_stream), entry)

@@ -156,14 +156,6 @@ def _contig_last(x: torch.Tensor) -> torch.Tensor:
     return x if x.stride(-1) == 1 else x.contiguous()
 
 
-def _launch(library: str, entry: str, device: torch.device, *args) -> None:
-    """Call C entry ``entry`` of ``library`` on ``device``'s current stream
-    (the kernel does not synchronise) and raise if its launch failed."""
-    with torch.cuda.device(device):
-        fn = getattr(build.library(library), entry)
-        build.check(fn(*args, torch.cuda.current_stream(device).cuda_stream), entry)
-
-
 def flash_fwd(q, k, v, causal: bool, scale: float):
     """Forward kernel: (out [B, Lq, H, D], lse f32 [B·H, Lq])."""
     if q.device.type == "cpu":
@@ -175,7 +167,7 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
     Lk = k.shape[1]
     out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, Lq), dtype=torch.float32, device=q.device)
-    _launch(
+    build.launch(
         "flash_fwd", "pgt_flash_fwd", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         B, H, Lq, Lk, D, *_strides(q), *_strides(k), *_strides(v),
@@ -202,7 +194,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     dk = torch.empty((B, Lk, H, D), dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
-    _launch(
+    build.launch(
         "flash_bwd", "pgt_flash_bwd_dkv", q.device,
         q.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         k.data_ptr(), v.data_ptr(), dk.data_ptr(), dv.data_ptr(),
@@ -223,7 +215,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
     Lk = k.shape[1]
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     dq = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
-    _launch(
+    build.launch(
         "flash_bwd", "pgt_flash_bwd_dq", q.device,
         q.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         k.data_ptr(), v.data_ptr(), dq.data_ptr(),
