@@ -7,12 +7,19 @@ It takes no arguments and runs every phase, in order; any failure raises
 and the script exits non-zero:
 
 1. build    — compile the CUDA kernels from pygrid_tpu_torch/csrc (nvcc,
-              sm_90a, one process per source) and print ptxas' report;
+              sm_90a, one process per source) and print ptxas' report; the
+              tensor-core kernels must not spill;
 2. kernels  — hold each kernel (flash forward, dK/dV, dQ) against its plain
               PyTorch version on the card: bf16 and f32, causal and not,
-              aligned and ragged shapes;
+              aligned and ragged shapes, and in bf16 the tensor-core
+              kernels' tile and layout edges (L around the 64-row tiles,
+              D of 40, 64 and 128, a D=36 padded copy, Lq != Lk, q/k/v as
+              strided views of one [B, L, 3, H, D] tensor); dK/dV must be
+              bit-identical across two launches;
 3. timing   — each kernel's median time at the main path's shape, beside
-              its bound, its plain version and the PyTorch library call;
+              its bound (with its multiple of it and its TFLOP/s), its
+              plain version and the PyTorch library call (SDPA, timed by
+              device time under torch.profiler);
 4. rounds   — the main path: fused FedAvg rounds of the federated
               transformer at full width (bench_fed_transformer's config),
               with each kernel's launches counted;
@@ -72,6 +79,17 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 
 
+# dynamic shared memory of the bf16 tensor-core kernels at padded head dim
+# dp, as launch_fwd_tc and launch_dkv_tc size it: bf16 tiles of pitch dp + 8
+# (forward: 64 rows of Q and two buffers each of 64 rows of K and V; dK/dV:
+# 64 rows each of K and V and two buffers each of 32 rows of Q and dO, plus
+# two buffers of 32 f32 lse and Delta)
+TC_SMEM = {
+    "flash_fwd": lambda dp: 2 * (64 + 4 * 64) * (dp + 8),
+    "flash_bwd_dkv": lambda dp: 2 * (2 * 64 + 4 * 32) * (dp + 8) + 4 * 4 * 32,
+}
+
+
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
@@ -100,9 +118,18 @@ def phase_build() -> None:
           + ", ".join(f"{n} {s:.2f} s" for n, s in per_lib.items()))
     for name in build.LIBRARIES:
         build.library(name)
+        entry = None
         for line in build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"[build] {name}: {line.strip()}")
+            if "Compiling entry" in line:
+                entry = line
+            elif "spill stores" in line and entry is not None and "_tc_kernel" in entry:
+                check(line.split()[4] == "0" and line.split()[8] == "0",
+                      f"a tensor-core kernel spills registers: {entry.strip()}: {line.strip()}")
+    for name, smem in TC_SMEM.items():
+        print(f"[build] {name} bf16 tensor-core kernel, dynamic shared memory a block: "
+              + ", ".join(f"D<={dp} {smem(dp)} B" for dp in (48, 64, 128)))
 
 
 # --------------------------------------------------------------------------
@@ -110,14 +137,19 @@ def phase_build() -> None:
 # --------------------------------------------------------------------------
 
 
-def _inputs(shape_q, Lk, dtype, seed):
+def _inputs(shape_q, Lk, dtype, seed, views=False):
+    """q, k, v, dO; with ``views``, q, k and v are the strided slices of one
+    [B, L, 3, H, D] tensor, as a fused qkv projection gives them."""
     B, Lq, H, D = shape_q
     g = torch.Generator(device="cuda").manual_seed(seed)
 
-    def rnd(L):
-        return torch.randn((B, L, H, D), generator=g, device="cuda").to(dtype)
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device="cuda").to(dtype)
 
-    return rnd(Lq), rnd(Lk), rnd(Lk), rnd(Lq)
+    if views:
+        qkv = rnd(B, Lq, 3, H, D)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], rnd(B, Lq, H, D)
+    return rnd(B, Lq, H, D), rnd(B, Lk, H, D), rnd(B, Lk, H, D), rnd(B, Lq, H, D)
 
 
 def _err(got, ref, dtype, what):
@@ -139,18 +171,20 @@ def _poison() -> None:
     torch.cuda.synchronize()
 
 
-def compare_case(shape_q, Lk, dtype, causal, seed=0):
+def compare_case(shape_q, Lk, dtype, causal, seed=0, views=False):
     """Each kernel against its plain version on the same inputs; returns
-    the max abs error of each."""
+    the max abs error of each. The dK/dV kernel runs twice and must give
+    the same bits (it writes each tile once, with no atomics)."""
     from pygrid_tpu_torch.parallel import flash_attention as fa
 
-    q, k, v, do = _inputs(shape_q, Lk, dtype, seed)
+    q, k, v, do = _inputs(shape_q, Lk, dtype, seed, views)
     scale = shape_q[-1] ** -0.5
     out_r, lse_r = fa.flash_fwd_reference(q, k, v, causal, scale)
     _poison()
     out_k, lse_k = fa.flash_fwd(q, k, v, causal, scale)
     torch.cuda.synchronize()
-    tag = f"{tuple(shape_q)} Lk={Lk} {str(dtype)[6:]} causal={causal}"
+    tag = (f"{tuple(shape_q)} Lk={Lk} {str(dtype)[6:]} causal={causal}"
+           + (" qkv views" if views else ""))
     errs = {
         "flash_fwd": max(
             _err(out_k, out_r, dtype, f"fwd out {tag}"),
@@ -161,7 +195,11 @@ def compare_case(shape_q, Lk, dtype, causal, seed=0):
     dk_r, dv_r = fa.flash_bwd_dkv_reference(q, k, v, do, lse_r, delta, causal, scale)
     _poison()
     dk_k, dv_k = fa.flash_bwd_dkv(q, k, v, do, lse_r, delta, causal, scale)
+    _poison()
+    dk_2, dv_2 = fa.flash_bwd_dkv(q, k, v, do, lse_r, delta, causal, scale)
     torch.cuda.synchronize()
+    check(torch.equal(dk_k, dk_2) and torch.equal(dv_k, dv_2),
+          f"dk/dv {tag}: two launches on the same inputs gave different bits")
     errs["flash_bwd_dkv"] = max(
         _err(dk_k, dk_r, dtype, f"dk {tag}"), _err(dv_k, dv_r, dtype, f"dv {tag}")
     )
@@ -185,6 +223,24 @@ def phase_kernels() -> dict:
     for dtype in (torch.bfloat16, torch.float32):
         for shape_q, Lk, causal in cases:
             compare_case(shape_q, Lk, dtype, causal)
+    # the bf16 tensor-core kernels' edges: L on both sides of the 64-row
+    # tiles at each padded head dim they are built for (48, 64, 128), a
+    # D=36 that takes the wrapper's zero-padded copy, Lq != Lk, and q/k/v
+    # as strided views of one [B, L, 3, H, D] tensor (strides of 3·H·D)
+    for L in (64, 65, 127, 128, 129):
+        for D in (40, 64, 128):
+            compare_case((2, L, 2, D), L, torch.bfloat16, True, seed=L + D)
+        compare_case((1, L, 3, 128), L, torch.bfloat16, False, seed=L)
+    for shape_q, Lk, causal, views in (
+        ((2, 129, 2, 36), 129, True, False),
+        ((1, 65, 2, 36), 127, False, False),
+        ((2, 65, 2, 128), 129, False, False),
+        ((1, 129, 2, 40), 64, False, False),
+        ((2, 127, 2, 64), 127, True, True),
+        ((1, 129, 4, 128), 129, False, True),
+        ((2, 65, 2, 36), 65, True, True),
+    ):
+        compare_case(shape_q, Lk, torch.bfloat16, causal, views=views)
     # the main path's own shape and dtype: these errors go into the JSON line
     return compare_case(MAIN_SHAPE, MAIN_SHAPE[1], torch.bfloat16, True, seed=1)
 
@@ -208,6 +264,36 @@ def time_ms(fn, iters=20, repeats=5) -> float:
         end.record()
         end.synchronize()
         samples.append(start.elapsed_time(end) / iters)
+    return statistics.median(samples)
+
+
+def device_ms(fn, calls=5) -> float:
+    """Median over ``calls`` of the device time of one call of ``fn``: the
+    self device time torch.profiler reports, summed over the CUDA kernels
+    the call launched. Unlike events around back-to-back calls, this leaves
+    out the time the device waits for the host between kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # a session that reports no device activity at all (seen on an H100 for
+    # a session of one short call) is not a sample: it is retried, up to
+    # 3 * calls sessions in all, and the empty ones are printed
+    fn()
+    torch.cuda.synchronize()
+    samples, empty = [], 0
+    while len(samples) < calls and empty < 2 * calls:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+        if us > 0:
+            samples.append(us / 1e3)
+        else:
+            empty += 1
+    check(len(samples) == calls, f"the profiler saw no device time in {empty} sessions")
+    if empty:
+        print(f"[timing] device_ms: {empty} profiler sessions saw no device time, retried")
     return statistics.median(samples)
 
 
@@ -264,27 +350,46 @@ def phase_timing() -> dict:
                     iters=5),
         ),
     }
+    dev_ms = {
+        "flash_fwd": device_ms(lambda: fa.flash_fwd(q, k, v, causal, scale)),
+        "flash_bwd_dkv": device_ms(
+            lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)),
+        "flash_bwd_dq": device_ms(
+            lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)),
+    }
     # the library yardstick: scaled_dot_product_attention in [B, H, L, D],
-    # timed here only; the port never calls it
+    # timed here only; the port never calls it. Its backward is one
+    # autograd.grad call whose host work is on the scale of its device
+    # work, so library_ms is its device time; the event time is printed too
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
-    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
-    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    sdpa_bwd = time_ms(
-        lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), dot, retain_graph=True)
-    )
-    library = {"flash_fwd": sdpa_fwd, "flash_bwd_dkv": sdpa_bwd, "flash_bwd_dq": sdpa_bwd}
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    o_sdpa = sdpa_fwd()
+
+    def sdpa_bwd():
+        return torch.autograd.grad(o_sdpa, (qt, kt, vt), dot, retain_graph=True)
+
+    lib_fwd = (device_ms(sdpa_fwd), time_ms(sdpa_fwd))
+    lib_bwd = (device_ms(sdpa_bwd), time_ms(sdpa_bwd))
+    library = {"flash_fwd": lib_fwd, "flash_bwd_dkv": lib_bwd, "flash_bwd_dq": lib_bwd}
     result = {}
     for name, (bound, by, flops, nbytes) in bounds(MAIN_SHAPE, dtype, causal).items():
         kernel_ms, plain_ms = ms[name]
+        lib_dev, lib_ev = library[name]
         result[name] = {
             "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-            "library_ms": library[name],
+            "library_ms": lib_dev,
         }
-        print(f"[timing] {name} {MAIN_SHAPE} bf16 causal: kernel {kernel_ms:.4f} ms, "
-              f"bound {bound:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), "
-              f"plain {plain_ms:.4f} ms, library {library[name]:.4f} ms"
-              + (" (SDPA backward, all of dq/dk/dv)" if name != "flash_fwd" else " (SDPA forward)"))
+        print(f"[timing] {name} {MAIN_SHAPE} bf16 causal: kernel {kernel_ms:.4f} ms "
+              f"(device time {dev_ms[name]:.4f} ms), bound {bound:.4f} ms ({by}; "
+              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), {kernel_ms / bound:.1f}x the "
+              f"bound, {flops / kernel_ms / 1e9:.1f} TFLOP/s, plain {plain_ms:.4f} ms, library "
+              f"{lib_dev:.4f} ms device time ({lib_ev:.4f} ms by events; "
+              + ("SDPA backward, all of dq/dk/dv)" if name != "flash_fwd" else "SDPA forward)")
+              + f", kernel / library by device time {dev_ms[name] / lib_dev:.2f}")
     return result
 
 

@@ -5,24 +5,53 @@
 // pygrid_tpu/parallel/pallas_attention.py (the two pl.pallas_call sites in
 // `_flash_bwd`). Both recompute P = exp(min(s - lse, 0)) tile by tile;
 // Delta = rowsum(dO * O) arrives precomputed (a plain torch op in the
-// wrapper, as on the TPU path).
+// wrapper, as on the TPU path). The two-pass layout keeps each gradient tile
+// on chip for a whole sweep and writes it once -- no atomics, so results
+// are the same from run to run -- and recomputes P instead of reading an
+// L x L tensor. Causal tile pairs entirely above the diagonal are skipped.
 //
 // What bounds them on the card: at the federated transformer's shape
 // ([32, 512, 4, 128] bf16, causal) dK/dV is ~17 GFLOP against ~100 MB and
-// dQ ~13 GFLOP against ~84 MB, so tensor-core kernels would be bound by
-// bytes (~30 us and ~25 us). This first version runs all products as f32
-// FMA on the CUDA cores from shared memory and is bound by operations.
-// What the design does about the bytes: the two-pass layout keeps each
-// gradient tile in registers for a whole sweep and writes it once -- no
-// atomics, so results are the same from run to run -- and recomputes P
-// instead of reading an L x L tensor. Causal tile pairs entirely above the
-// diagonal are skipped. The next step is mma.sync / wgmma for the products.
+// dQ ~13 GFLOP against ~84 MB, so on the tensor cores both are bound by
+// bytes (~30 us and ~25 us); mma.sync at half the dense bf16 rate does
+// dK/dV's products in ~35 us, so data movement and occupancy, not the
+// instruction, stand between a kernel and its bound.
+//
+// dK/dV in bf16 (the main path), flash_bwd_dkv_tc_kernel, in the
+// FlashAttention-2 shape: one block of 4 warps per (b*h, 64-key tile), each
+// warp owning 16 keys, looping over the query tiles (from the diagonal on,
+// when causal). K and V are copied once; the Q, dO, lse and Delta tiles are
+// double-buffered in shared memory by cp.async, bf16 tiles with a 16-byte
+// row pad. S^T = K Q^T and dP^T = V dO^T run as m16n8k16 mma.sync (Q and dO
+// as B fragments by ldmatrix); P^T = exp(min(S^T scale - lse, 0)) and
+// dS^T = P^T (dP^T - Delta) scale are formed in f32 registers, masked only
+// on the diagonal and ragged tiles; bf16(P^T) and bf16(dS^T) go from the C
+// fragments straight to A fragments (the reference's rounding points) for
+// dV += P^T dO and dK += dS^T Q, with dO and Q as B through ldmatrix.trans.
+// dK and dV stay in f32 registers for the whole loop and are written once,
+// staged through shared memory, with 16-byte stores.
+// Register budget at D = 128: dK and dV take 128 f32 registers a thread,
+// S^T and dP^T 4 * TC_BQ / 8 more; K and V are re-read by ldmatrix for
+// every query tile rather than held as fragments, which would cost 64 more.
+// The query tile is 32 wide, which ptxas fits in 254 registers without
+// spills at D = 128 (a 64-wide tile takes all 255 and ran slower; PERF.md
+// has both). chip_smoke.py's build phase prints the registers and spills
+// and fails on a spill. The shared memory is 70 KB a block at D = 128, so
+// registers, not shared memory, hold it to 2 blocks an SM.
+//
+// The f32 dK/dV kernel (the f32 parity checks, held at 1e-4) and the dQ
+// kernel in both dtypes are f32 FMA on the CUDA cores from f32 tiles in
+// shared memory, 64-row tiles, 256 threads with a 4x4 register tile each.
+//
+// Next steps: dQ on the tensor cores in the same shape, then wgmma fed by
+// TMA with a producer warp, and a persistent schedule over the tiles.
 //
 // The TPU's sequential "arbitrary" grid axis (q innermost for dK/dV, k
 // innermost for dQ) becomes the loop over tiles inside one thread block.
 // Pad queries are masked as well as pad keys: their lse and Delta load as 0,
 // and exp(s - 0) is finite but wrong, so query validity is in the mask.
 #include "flash_common.cuh"
+#include "tc_common.cuh"
 
 namespace pgt {
 
@@ -329,6 +358,210 @@ int launch_dq(const void* q, const void* dout, const void* lse, const void* delt
   return (int)cudaGetLastError();
 }
 
+// ---- bf16 dK/dV: tensor cores -------------------------------------------
+
+constexpr int TC_BK = 64;        // keys per block, 16 per warp
+constexpr int TC_BQ = 32;        // queries per Q/dO tile
+constexpr int TC_THREADS = 128;  // 4 warps
+
+template <int DP>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                        const float* __restrict__ delta, const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ dk,
+                        __nv_bfloat16* __restrict__ dv, int H, int Lq, int Lk, int D, int q_sb,
+                        int q_sl, int q_sh, int o_sb, int o_sl, int o_sh, int k_sb, int k_sl,
+                        int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal) {
+  using namespace tc;
+  constexpr int P = DP + PAD;  // row pitch of every shared tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BK][P], then dK
+  __nv_bfloat16* sV = sK + TC_BK * P;                                // [BK][P], then dV
+  __nv_bfloat16* sQ = sV + TC_BK * P;                                // [2][BQ][P]
+  __nv_bfloat16* sO = sQ + 2 * TC_BQ * P;                            // [2][BQ][P] dO
+  float* sLse = reinterpret_cast<float*>(sO + 2 * TC_BQ * P);        // [2][BQ]
+  float* sDelta = sLse + 2 * TC_BQ;                                  // [2][BQ]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.y * TC_BK;  // low key tiles see the most queries: they start first
+  const __nv_bfloat16* qb = q + (long long)b * q_sb + (long long)h * q_sh;
+  const __nv_bfloat16* ob = dout + (long long)b * o_sb + (long long)h * o_sh;
+  const __nv_bfloat16* kb = k + (long long)b * k_sb + (long long)h * k_sh;
+  const __nv_bfloat16* vb = v + (long long)b * v_sb + (long long)h * v_sh;
+  const float* lse_b = lse + (long long)bh * Lq;
+  const float* delta_b = delta + (long long)bh * Lq;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // fragment row (and row + 8): keys
+  const int t = lane & 3;   // fragment column pair: queries
+  const int wrow = warp * 16;
+
+  // one query tile's Q, dO, lse and Delta into buffer `buf`
+  auto load_q_tile = [&](int qt, int buf) {
+    const int q0 = qt * TC_BQ;
+    load_tile_async<TC_BQ, DP, TC_THREADS>(sQ + buf * TC_BQ * P, qb, q_sl, q0, Lq, D);
+    load_tile_async<TC_BQ, DP, TC_THREADS>(sO + buf * TC_BQ * P, ob, o_sl, q0, Lq, D);
+    for (int i = threadIdx.x; i < 2 * TC_BQ; i += TC_THREADS) {
+      const int r = i % TC_BQ;
+      const bool in = q0 + r < Lq;
+      const float* src = i < TC_BQ ? lse_b : delta_b;
+      cp_async_4((i < TC_BQ ? sLse : sDelta) + buf * TC_BQ + r, in ? src + q0 + r : src, in);
+    }
+  };
+
+  const int n_q = (Lq + TC_BQ - 1) / TC_BQ;
+  // causal: a query tile whose last query precedes the first key is all
+  // masked (qt * BQ + BQ - 1 < k0) and is skipped
+  const int q_first = causal ? k0 / TC_BQ : 0;
+  load_tile_async<TC_BK, DP, TC_THREADS>(sK, kb, k_sl, k0, Lk, D);
+  load_tile_async<TC_BK, DP, TC_THREADS>(sV, vb, v_sl, k0, Lk, D);
+  if (q_first < n_q) load_q_tile(q_first, 0);
+  cp_async_commit();
+
+  const float sl2 = scale * 1.4426950408889634f;  // log2 units
+  float acc_dk[DP / 8][4], acc_dv[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc_dk[n][c] = acc_dv[n][c] = 0.f;
+
+  for (int qt = q_first; qt < n_q; ++qt) {
+    const int cur = (qt - q_first) & 1;
+    if (qt + 1 < n_q) {  // the next tile's copy runs under this tile's math
+      load_q_tile(qt + 1, cur ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile qt (and at the first step, K and V) has landed
+    const __nv_bfloat16* Qt = sQ + cur * TC_BQ * P;
+    const __nv_bfloat16* Ot = sO + cur * TC_BQ * P;
+    const float* Lt = sLse + cur * TC_BQ;
+    const float* Dt = sDelta + cur * TC_BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T: 16 keys x BQ queries per warp
+    float s[TC_BQ / 8][4], dp[TC_BQ / 8][4];
+#pragma unroll
+    for (int j = 0; j < TC_BQ / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks) {
+      uint32_t ka[4], va[4];
+      ldmatrix_x4(ka, sK + (wrow + (lane & 15)) * P + ks * 16 + (lane >> 4) * 8);
+      ldmatrix_x4(va, sV + (wrow + (lane & 15)) * P + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < TC_BQ / 16; ++np) {
+        const int off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * P + ks * 16 +
+                        ((lane >> 3) & 1) * 8;
+        uint32_t qf[4], of[4];  // B fragments of query tiles 2np and 2np+1
+        ldmatrix_x4(qf, Qt + off);
+        ldmatrix_x4(of, Ot + off);
+        mma_bf16(s[2 * np], ka, qf[0], qf[1]);
+        mma_bf16(s[2 * np + 1], ka, qf[2], qf[3]);
+        mma_bf16(dp[2 * np], va, of[0], of[1]);
+        mma_bf16(dp[2 * np + 1], va, of[2], of[3]);
+      }
+    }
+
+    // P^T = exp(min(S^T scale - lse, 0)) and dS^T = P^T (dP^T - Delta) scale,
+    // f32; invalid pairs (pad query, pad key, causal) only on the diagonal
+    // and ragged tiles, where they become 0
+    const int q0 = qt * TC_BQ;
+    const bool need_mask =
+        (causal && q0 < k0 + TC_BK - 1) || q0 + TC_BQ > Lq || k0 + TC_BK > Lk;
+#pragma unroll
+    for (int j = 0; j < TC_BQ / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int qc = 8 * j + 2 * t + (c & 1);
+        // exp(s - lse) <= 1 on live lanes; the clamp keeps dead lanes from
+        // overflowing before the select
+        float p = exp2f(fminf(s[j][c] * sl2 - Lt[qc] * 1.4426950408889634f, 0.f));
+        if (need_mask) {
+          const int qpos = q0 + qc;
+          const int kpos = k0 + wrow + g + (c >> 1) * 8;
+          if (qpos >= Lq || kpos >= Lk || (causal && qpos < kpos)) p = 0.f;
+        }
+        s[j][c] = p;
+        dp[j][c] = p * (dp[j][c] - Dt[qc]) * scale;
+      }
+    }
+
+    // dV += bf16(P^T) dO and dK += bf16(dS^T) Q: the C fragments of query
+    // tiles 2kk, 2kk+1 are the A fragment of k-step kk
+#pragma unroll
+    for (int kk = 0; kk < TC_BQ / 16; ++kk) {
+      const uint32_t pa[4] = {
+          pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+      const uint32_t da[4] = {
+          pack_bf16(dp[2 * kk][0], dp[2 * kk][1]), pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+          pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+          pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < DP / 16; ++np) {
+        const int off = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + np * 16 +
+                        (lane >> 4) * 8;
+        uint32_t of[4], qf[4];  // B fragments of head-dim tiles 2np and 2np+1
+        ldmatrix_x4_trans(of, Ot + off);
+        ldmatrix_x4_trans(qf, Qt + off);
+        mma_bf16(acc_dv[2 * np], pa, of[0], of[1]);
+        mma_bf16(acc_dv[2 * np + 1], pa, of[2], of[3]);
+        mma_bf16(acc_dk[2 * np], da, qf[0], qf[1]);
+        mma_bf16(acc_dk[2 * np + 1], da, qf[2], qf[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with buffer `cur` before it is refilled
+  }
+
+  // stage dK and dV as bf16 over K and V, then store them coalesced
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    const int col = n * 8 + 2 * t;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = wrow + g + 8 * hh;
+      *reinterpret_cast<uint32_t*>(sK + row * P + col) =
+          pack_bf16(acc_dk[n][2 * hh], acc_dk[n][2 * hh + 1]);
+      *reinterpret_cast<uint32_t*>(sV + row * P + col) =
+          pack_bf16(acc_dv[n][2 * hh], acc_dv[n][2 * hh + 1]);
+    }
+  }
+  __syncthreads();
+  const long long out0 = ((long long)b * Lk * H + h) * D;
+  store_tile<TC_BK, DP, TC_THREADS>(dk + out0, (long long)H * D, sK, k0, Lk, D);
+  store_tile<TC_BK, DP, TC_THREADS>(dv + out0, (long long)H * D, sV, k0, Lk, D);
+}
+
+template <int DP>
+int launch_dkv_tc(const void* q, const void* dout, const void* lse, const void* delta,
+                  const void* k, const void* v, void* dk, void* dv, int B, int H, int Lq, int Lk,
+                  int D, int q_sb, int q_sl, int q_sh, int o_sb, int o_sl, int o_sh, int k_sb,
+                  int k_sl, int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal,
+                  cudaStream_t stream) {
+  const size_t smem = sizeof(__nv_bfloat16) * (2 * TC_BK + 4 * TC_BQ) * (DP + tc::PAD) +
+                      sizeof(float) * 4 * TC_BQ;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (Lk + TC_BK - 1) / TC_BK);
+  flash_bwd_dkv_tc_kernel<DP><<<grid, TC_THREADS, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)dout, (const float*)lse,
+      (const float*)delta, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, H, Lq, Lk, D, q_sb, q_sl, q_sh, o_sb, o_sl, o_sh,
+      k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal);
+  return (int)cudaGetLastError();
+}
+
 inline bool bad_shape(int B, int H, int Lq, int Lk, int D) {
   return D < 1 || D > MAX_D || Lq < 1 || Lk < 1 || B * H < 1 || B * H > 65535;
 }
@@ -336,7 +569,10 @@ inline bool bad_shape(int B, int H, int Lq, int Lk, int D) {
 }  // namespace pgt
 
 // dk, dv: contiguous [B, Lk, H, D] in the input dtype. lse, delta: contiguous
-// f32 [B*H, Lq]. Returns the cudaError_t of the launch (0 = launched).
+// f32 [B*H, Lq]. bf16 runs on the tensor cores and needs D % 8 == 0, strides
+// that are multiples of 8 elements and 16-byte-aligned q, dO, k, v (the
+// wrapper makes a padded copy where a view is not so). Returns the
+// cudaError_t of the launch (0 = launched).
 extern "C" int pgt_flash_bwd_dkv(const void* q, const void* dout, const void* lse,
                                  const void* delta, const void* k, const void* v, void* dk,
                                  void* dv, int B, int H, int Lq, int Lk, int D, int q_sb,
@@ -345,10 +581,26 @@ extern "C" int pgt_flash_bwd_dkv(const void* q, const void* dout, const void* ls
                                  int causal, int is_bf16, void* stream) {
   if (pgt::bad_shape(B, H, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    return pgt::launch_dkv<__nv_bfloat16>(q, dout, lse, delta, k, v, dk, dv, B, H, Lq, Lk, D,
-                                          q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh,
-                                          v_sb, v_sl, v_sh, scale, causal, s);
+  if (is_bf16) {
+    using pgt::tc::layout_ok;
+    if (!layout_ok(q, D, q_sb, q_sl, q_sh) || !layout_ok(dout, D, o_sb, o_sl, o_sh) ||
+        !layout_ok(k, D, k_sb, k_sl, k_sh) || !layout_ok(v, D, v_sb, v_sl, v_sh))
+      return (int)cudaErrorInvalidValue;
+    switch (pgt::tc::padded_d(D)) {
+      case 48:
+        return pgt::launch_dkv_tc<48>(q, dout, lse, delta, k, v, dk, dv, B, H, Lq, Lk, D, q_sb,
+                                      q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb, v_sl,
+                                      v_sh, scale, causal, s);
+      case 64:
+        return pgt::launch_dkv_tc<64>(q, dout, lse, delta, k, v, dk, dv, B, H, Lq, Lk, D, q_sb,
+                                      q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb, v_sl,
+                                      v_sh, scale, causal, s);
+      default:
+        return pgt::launch_dkv_tc<128>(q, dout, lse, delta, k, v, dk, dv, B, H, Lq, Lk, D, q_sb,
+                                       q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb,
+                                       v_sl, v_sh, scale, causal, s);
+    }
+  }
   return pgt::launch_dkv<float>(q, dout, lse, delta, k, v, dk, dv, B, H, Lq, Lk, D, q_sb, q_sl,
                                 q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh,
                                 scale, causal, s);

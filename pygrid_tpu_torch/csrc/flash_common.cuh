@@ -8,10 +8,14 @@
 // allocated contiguous [B, L, H, D]; the per-row statistics (lse, delta)
 // are contiguous f32 [B*H, Lq].
 //
-// Every block computes on f32 copies of its tiles in shared memory with
-// plain f32 FMA. Ragged edges are handled by masking inside the kernel:
-// rows past L load as zero and are never written, columns past D are
-// never read, so nothing is padded in device memory.
+// The FMA kernels (every f32 kernel, and dQ in bf16 too) compute on f32
+// copies of their tiles in shared memory, loaded by the helpers below; the
+// bf16 forward and dK/dV kernels run on the tensor cores from bf16 tiles
+// (tc_common.cuh). Ragged edges are handled by masking inside the kernels:
+// rows past L load as zero and are never written, columns past D are never
+// written, so nothing is padded in device memory -- except that the
+// tensor-core kernels' 16-byte copies need D and the strides in multiples
+// of 8 elements, and the wrapper pads a view that does not meet that.
 #pragma once
 
 #include <cuda_bf16.h>

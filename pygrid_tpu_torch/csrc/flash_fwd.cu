@@ -7,20 +7,43 @@
 //
 // What bounds it on the card: at the federated transformer's shape
 // ([32, 512, 4, 128] bf16, causal) the work is ~8.6 GFLOP against ~67 MB of
-// traffic, so a tensor-core kernel would be bound by bytes (~20 us). This
-// first version does its products with f32 FMA on the CUDA cores (67 TFLOP/s
-// peak, fed from shared memory), so it is bound by operations: the shared
-// memory reads of the 4x4 register tiles and the FMA rate. What the design
-// does about the bytes: each (b*h, 64-query tile) block reads its Q tile
-// once and streams each K/V tile once through shared memory, keeps the
-// running max, sum and the output accumulator on chip, and writes O and lse
-// once; the L x L scores never reach device memory. Causal K tiles entirely
-// above the diagonal are skipped (about half the work at L = 512).
-// The next step is mma.sync / wgmma for the two products.
+// traffic, so on the tensor cores it is bound by bytes (~20 us); even
+// mma.sync at half the dense bf16 rate does the products in ~17 us. What
+// stands between a kernel and that bound is data movement and occupancy.
+//
+// bf16 (the main path), flash_fwd_tc_kernel, in the FlashAttention-2 shape:
+// one block of 4 warps per (b*h, 64-query tile), each warp owning 16 query
+// rows. Q is copied once with cp.async and held in registers as ldmatrix A
+// fragments; the 64-key K and V tiles are double-buffered in shared memory
+// as bf16 (the copy of tile kt+1 is issued before the math of tile kt).
+// S = Q K^T and O += P V run as m16n8k16 mma.sync with f32 accumulators in
+// registers (V through ldmatrix.trans); the online softmax runs in registers
+// in the log2 domain (scores pre-multiplied by scale * log2(e), row max and
+// sum reduced across the 4 lanes of a quad), and P, rounded to bf16 as the
+// reference's p.astype(v.dtype), goes from the C fragments of S straight to
+// the A fragments of the PV product. l is summed from the f32 p. Masks apply
+// only on the diagonal tile and the ragged last tile. O is normalised,
+// staged through shared memory and stored with 16-byte writes; lse is
+// written in natural log (m + log l), as the backward reads it. Causal K
+// tiles above the diagonal are skipped, and the query tiles launch in
+// reverse order so the longest rows of the causal triangle start first.
+// At D = 128 a block takes 85 KB of shared memory and ptxas gives it 236
+// registers without spills, so 2 blocks (8 warps) share an SM.
+// chip_smoke.py's build phase prints the registers and spills and fails on
+// a spill.
+//
+// f32 (the f32 parity checks, held at 1e-4, which neither bf16 nor TF32
+// tensor cores give), flash_fwd_kernel: f32 FMA on the CUDA cores from f32
+// tiles in shared memory, 64-row tiles, 256 threads with a 4x4 register
+// tile each.
+//
+// Next step: wgmma fed by TMA with a producer warp, and a persistent
+// schedule over (b*h, query tile) pairs.
 //
 // The TPU's sequential "arbitrary" grid axis over K blocks becomes the loop
 // over K tiles inside one thread block.
 #include "flash_common.cuh"
+#include "tc_common.cuh"
 
 namespace pgt {
 
@@ -197,10 +220,225 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse
   return (int)cudaGetLastError();
 }
 
+// ---- bf16: tensor cores -------------------------------------------------
+
+constexpr int TC_BM = 64;        // queries per block, 16 per warp
+constexpr int TC_BN = 64;        // keys per K/V tile
+constexpr int TC_THREADS = 128;  // 4 warps
+
+template <int DP>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                    float* __restrict__ lse, int H, int Lq, int Lk, int D, int q_sb, int q_sl,
+                    int q_sh, int k_sb, int k_sl, int k_sh, int v_sb, int v_sl, int v_sh,
+                    float scale, int causal) {
+  using namespace tc;
+  constexpr int P = DP + PAD;  // row pitch of every shared tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BM][P], then O
+  __nv_bfloat16* sK = sQ + TC_BM * P;                                // [2][BN][P]
+  __nv_bfloat16* sV = sK + 2 * TC_BN * P;                            // [2][BN][P]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
+  const int q0 = qt * TC_BM;
+  const __nv_bfloat16* qb = q + (long long)b * q_sb + (long long)h * q_sh;
+  const __nv_bfloat16* kb = k + (long long)b * k_sb + (long long)h * k_sh;
+  const __nv_bfloat16* vb = v + (long long)b * v_sb + (long long)h * v_sh;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // fragment row (and row + 8)
+  const int t = lane & 3;   // fragment column pair
+  const int wrow = warp * 16;
+
+  int n_k = (Lk + TC_BN - 1) / TC_BN;
+  // causal: a K tile whose first key is past the tile's last query is all
+  // masked (kt > qt) and is skipped
+  if (causal && n_k > qt + 1) n_k = qt + 1;
+
+  load_tile_async<TC_BM, DP, TC_THREADS>(sQ, qb, q_sl, q0, Lq, D);
+  load_tile_async<TC_BN, DP, TC_THREADS>(sK, kb, k_sl, 0, Lk, D);
+  load_tile_async<TC_BN, DP, TC_THREADS>(sV, vb, v_sl, 0, Lk, D);
+  cp_async_commit();
+
+  const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units
+  uint32_t qf[DP / 16][4];                        // Q as A fragments
+  float o[DP / 8][4];                             // O accumulators
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
+  // running max (log2 units) and this thread's partial sum of rows g, g+8
+  float m_run[2] = {NEG, NEG};
+  float l_run[2] = {0.f, 0.f};
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < n_k) {  // the next tile's copy runs under this tile's math
+      const int nk0 = (kt + 1) * TC_BN;
+      load_tile_async<TC_BN, DP, TC_THREADS>(sK + (cur ^ 1) * TC_BN * P, kb, k_sl, nk0, Lk, D);
+      load_tile_async<TC_BN, DP, TC_THREADS>(sV + (cur ^ 1) * TC_BN * P, vb, v_sl, nk0, Lk, D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile kt (and at kt = 0, Q) is in shared memory
+    if (kt == 0) {
+#pragma unroll
+      for (int ks = 0; ks < DP / 16; ++ks)
+        ldmatrix_x4(qf[ks], sQ + (wrow + (lane & 15)) * P + ks * 16 + (lane >> 4) * 8);
+    }
+    const __nv_bfloat16* Kt = sK + cur * TC_BN * P;
+    const __nv_bfloat16* Vt = sV + cur * TC_BN * P;
+
+    // S = Q K^T: 16 rows x 64 keys per warp, 8 n8 tiles
+    float s[TC_BN / 8][4];
+#pragma unroll
+    for (int j = 0; j < TC_BN / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks) {
+#pragma unroll
+      for (int np = 0; np < TC_BN / 16; ++np) {
+        uint32_t kf[4];  // B fragments of key tiles 2np and 2np+1
+        ldmatrix_x4(kf, Kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * P + ks * 16 +
+                            ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * np], qf[ks], kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qf[ks], kf[2], kf[3]);
+      }
+    }
+
+    // scale, then mask: only the diagonal tile and the ragged last tile
+    // hold invalid lanes, which become -inf (never above the finite start
+    // NEG of the running max, and exp2(-inf) is exactly 0)
+    const int k0 = kt * TC_BN;
+    const bool need_mask = (causal && kt == qt) || k0 + TC_BN > Lk;
+#pragma unroll
+    for (int j = 0; j < TC_BN / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float x = s[j][c] * sl2;
+        if (need_mask) {
+          const int kpos = k0 + 8 * j + 2 * t + (c & 1);
+          const int qpos = q0 + wrow + g + (c >> 1) * 8;
+          if (kpos >= Lk || (causal && qpos < kpos)) x = neg_inf();
+        }
+        s[j][c] = x;
+      }
+    }
+
+    // online softmax of rows g (c = 0, 1) and g + 8 (c = 2, 3)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = NEG;
+#pragma unroll
+      for (int j = 0; j < TC_BN / 8; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[hh], mx);
+      const float alpha = exp2f(m_run[hh] - m_new);
+      m_run[hh] = m_new;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < TC_BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float p = exp2f(s[j][2 * hh + e] - m_new);
+          s[j][2 * hh + e] = p;
+          sum += p;
+        }
+      }
+      l_run[hh] = l_run[hh] * alpha + sum;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        o[n][2 * hh] *= alpha;
+        o[n][2 * hh + 1] *= alpha;
+      }
+    }
+
+    // O += bf16(P) V: the C fragments of key tiles 2kk, 2kk+1 are the A
+    // fragment of k-step kk
+#pragma unroll
+    for (int kk = 0; kk < TC_BN / 16; ++kk) {
+      const uint32_t pa[4] = {
+          pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < DP / 16; ++np) {
+        uint32_t vf[4];  // B fragments of head-dim tiles 2np and 2np+1
+        ldmatrix_x4_trans(vf, Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
+                                  np * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * np], pa, vf[0], vf[1]);
+        mma_bf16(o[2 * np + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with buffer `cur` before it is refilled
+  }
+
+  // full row sums; normalise, stage O as bf16 in sQ (the Q fragments are in
+  // registers and the loop ended on a barrier), then store it coalesced
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float l = l_run[hh];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l_run[hh] = fmaxf(l, 1e-30f);
+  }
+  const float inv0 = 1.f / l_run[0];
+  const float inv1 = 1.f / l_run[1];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    const int col = n * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(sQ + (wrow + g) * P + col) =
+        pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
+    *reinterpret_cast<uint32_t*>(sQ + (wrow + g + 8) * P + col) =
+        pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int qpos = q0 + wrow + g + 8 * hh;
+      // natural log: m (log2 units) * ln 2 + log l
+      if (qpos < Lq)
+        lse[(long long)bh * Lq + qpos] = m_run[hh] * 0.6931471805599453f + logf(l_run[hh]);
+    }
+  }
+  __syncthreads();
+  store_tile<TC_BM, DP, TC_THREADS>(out + ((long long)b * Lq * H + h) * D, (long long)H * D, sQ,
+                                    q0, Lq, D);
+}
+
+template <int DP>
+int launch_fwd_tc(const void* q, const void* k, const void* v, void* out, void* lse, int B,
+                  int H, int Lq, int Lk, int D, int q_sb, int q_sl, int q_sh, int k_sb, int k_sl,
+                  int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal,
+                  cudaStream_t stream) {
+  const size_t smem = sizeof(__nv_bfloat16) * (TC_BM + 4 * TC_BN) * (DP + tc::PAD);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (Lq + TC_BM - 1) / TC_BM);
+  flash_fwd_tc_kernel<DP><<<grid, TC_THREADS, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (__nv_bfloat16*)out, (float*)lse, H, Lq, Lk, D, q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb,
+      v_sl, v_sh, scale, causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace pgt
 
 // out: contiguous [B, Lq, H, D] in the input dtype; lse: contiguous f32
-// [B*H, Lq]. Returns the cudaError_t of the launch (0 = launched).
+// [B*H, Lq]. bf16 runs on the tensor cores and needs D % 8 == 0, strides
+// that are multiples of 8 elements and 16-byte-aligned q, k, v (the wrapper
+// makes a padded copy where a view is not so). Returns the cudaError_t of
+// the launch (0 = launched).
 extern "C" int pgt_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                              int B, int H, int Lq, int Lk, int D, int q_sb, int q_sl, int q_sh,
                              int k_sb, int k_sl, int k_sh, int v_sb, int v_sl, int v_sh,
@@ -208,9 +446,22 @@ extern "C" int pgt_flash_fwd(const void* q, const void* k, const void* v, void* 
   if (D < 1 || D > pgt::MAX_D || Lq < 1 || Lk < 1 || B * H < 1 || B * H > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    return pgt::launch_fwd<__nv_bfloat16>(q, k, v, out, lse, B, H, Lq, Lk, D, q_sb, q_sl, q_sh,
-                                          k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal, s);
+  if (is_bf16) {
+    if (!pgt::tc::layout_ok(q, D, q_sb, q_sl, q_sh) || !pgt::tc::layout_ok(k, D, k_sb, k_sl, k_sh) ||
+        !pgt::tc::layout_ok(v, D, v_sb, v_sl, v_sh))
+      return (int)cudaErrorInvalidValue;
+    switch (pgt::tc::padded_d(D)) {
+      case 48:
+        return pgt::launch_fwd_tc<48>(q, k, v, out, lse, B, H, Lq, Lk, D, q_sb, q_sl, q_sh, k_sb,
+                                      k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal, s);
+      case 64:
+        return pgt::launch_fwd_tc<64>(q, k, v, out, lse, B, H, Lq, Lk, D, q_sb, q_sl, q_sh, k_sb,
+                                      k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal, s);
+      default:
+        return pgt::launch_fwd_tc<128>(q, k, v, out, lse, B, H, Lq, Lk, D, q_sb, q_sl, q_sh,
+                                       k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal, s);
+    }
+  }
   return pgt::launch_fwd<float>(q, k, v, out, lse, B, H, Lq, Lk, D, q_sb, q_sl, q_sh, k_sb,
                                 k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal, s);
 }

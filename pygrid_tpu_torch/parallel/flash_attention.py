@@ -15,7 +15,12 @@ its kernel or raises.
 
 Tensors stay in the reference's ``[B, L, H, D]`` layout: the kernels read
 q, k, v and dO through their strides (last dimension contiguous), so no
-``[B·H, L, D]`` transpose copy is made.
+``[B·H, L, D]`` transpose copy is made. In bf16 the forward and the dK/dV
+kernel run on the tensor cores and copy 16-byte chunks: where a view's head
+dim or strides are not multiples of 8 elements, or its base is not 16-byte
+aligned, the wrapper hands them a zero-padded contiguous copy
+(:func:`_tc_layout`, the counterpart of the reference's ``_pad_to``) and
+slices the outputs; the main path's q, k, v need none.
 """
 
 from __future__ import annotations
@@ -156,6 +161,26 @@ def _contig_last(x: torch.Tensor) -> torch.Tensor:
     return x if x.stride(-1) == 1 else x.contiguous()
 
 
+def _tc_layout(*xs: torch.Tensor) -> tuple[list[torch.Tensor], int]:
+    """The [B, L, H, D] views as the bf16 tensor-core kernels read them,
+    and the head dim they run at: D rounded up to a multiple of 8, every
+    stride a multiple of 8 elements and a 16-byte-aligned base, for their
+    16-byte copies. A view that already is so passes as it is; any other is
+    copied into a contiguous buffer zero-filled past D (zeros add nothing to
+    q·k and give output columns the caller slices off)."""
+    D = xs[0].shape[-1]
+    Dp = -(-D // 8) * 8
+    out = []
+    for x in xs:
+        if D == Dp and all(s % 8 == 0 for s in x.stride()[:3]) and x.data_ptr() % 16 == 0:
+            out.append(x)
+        else:
+            padded = x.new_zeros((*x.shape[:3], Dp))
+            padded[..., :D] = x
+            out.append(padded)
+    return out, Dp
+
+
 def flash_fwd(q, k, v, causal: bool, scale: float):
     """Forward kernel: (out [B, Lq, H, D], lse f32 [B·H, Lq])."""
     if q.device.type == "cpu":
@@ -165,16 +190,19 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
     _check_cuda(q, k, v)
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
-    out = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
+    Dp = D
+    if q.dtype == torch.bfloat16:
+        (q, k, v), Dp = _tc_layout(q, k, v)
+    out = torch.empty((B, Lq, H, Dp), dtype=q.dtype, device=q.device)
     lse = torch.empty((B * H, Lq), dtype=torch.float32, device=q.device)
     build.launch(
         "flash_fwd", "pgt_flash_fwd", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        B, H, Lq, Lk, D, *_strides(q), *_strides(k), *_strides(v),
+        B, H, Lq, Lk, Dp, *_strides(q), *_strides(k), *_strides(v),
         float(scale), int(causal), _DTYPES[q.dtype],
     )
     fwd_launches += 1
-    return out, lse
+    return out[..., :D], lse
 
 
 def _bwd_args(q, k, v, do):
@@ -191,18 +219,21 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
     q, k, v, do = _bwd_args(q, k, v, do)
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
+    Dp = D
+    if q.dtype == torch.bfloat16:
+        (q, k, v, do), Dp = _tc_layout(q, k, v, do)
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
-    dk = torch.empty((B, Lk, H, D), dtype=k.dtype, device=k.device)
+    dk = torch.empty((B, Lk, H, Dp), dtype=k.dtype, device=k.device)
     dv = torch.empty_like(dk)
     build.launch(
         "flash_bwd", "pgt_flash_bwd_dkv", q.device,
         q.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         k.data_ptr(), v.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        B, H, Lq, Lk, D, *_strides(q), *_strides(do), *_strides(k), *_strides(v),
+        B, H, Lq, Lk, Dp, *_strides(q), *_strides(do), *_strides(k), *_strides(v),
         float(scale), int(causal), _DTYPES[q.dtype],
     )
     bwd_dkv_launches += 1
-    return dk, dv
+    return dk[..., :D], dv[..., :D]
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):

@@ -49,6 +49,14 @@ def _torch(xs, dtype=torch.float32):
         (2, 200, 200, 2, 32, True),    # ragged lengths, tiny head dim
         (1, 100, 300, 2, 64, False),   # cross-attention, ragged
         (1, 384, 384, 1, 128, True),   # full-width head dim
+        # the bf16 tensor-core kernels' tile edges on the card (64-row
+        # tiles; head dims padded to 48, 64 and 128), at the D each has there
+        (1, 64, 64, 1, 40, True),
+        (1, 65, 65, 2, 128, True),
+        (1, 127, 127, 1, 64, True),
+        (1, 128, 128, 1, 40, False),
+        (1, 129, 129, 1, 36, True),    # D=36: the wrapper's padded copy
+        (1, 65, 129, 2, 128, False),   # Lq != Lk
     ],
 )
 def test_forward_and_lse_match_pallas(B, Lq, Lk, H, D, causal):
@@ -66,13 +74,21 @@ def test_forward_and_lse_match_pallas(B, Lq, Lk, H, D, causal):
 
 
 @pytest.mark.parametrize(
-    "Lq,Lk,causal",
-    [(128, 128, False), (200, 200, True), (100, 300, False)],
+    "Lq,Lk,causal,D",
+    [
+        pytest.param(128, 128, False, 64, id="128-128-False"),
+        pytest.param(200, 200, True, 64, id="200-200-True"),
+        pytest.param(100, 300, False, 64, id="100-300-False"),
+        # tile edges of the bf16 tensor-core kernels on the card
+        pytest.param(65, 65, True, 40, id="65-65-True-D40"),
+        pytest.param(129, 129, True, 128, id="129-129-True-D128"),
+        pytest.param(64, 127, False, 36, id="64-127-False-D36"),
+    ],
 )
-def test_gradients_match_pallas(Lq, Lk, causal):
+def test_gradients_match_pallas(Lq, Lk, causal, D):
     """The autograd Function's backward (Δ, then the dK/dV and dQ passes)
     agrees with jax.grad through the interpret-mode Pallas VJP."""
-    xs = _qkv(1, Lq, Lk, 2, 64, seed=3)
+    xs = _qkv(1, Lq, Lk, 2, D, seed=3)
     g_j = jax.grad(
         lambda q, k, v: jnp.sum(
             jnp.tanh(jax_flash(q, k, v, causal=causal, interpret=True))
@@ -140,33 +156,72 @@ def test_wrappers_count_only_kernel_launches():
     }
 
 
+def test_tensor_core_layout_step():
+    """What the bf16 tensor-core kernels are handed: a view whose head dim
+    and strides are multiples of 8 elements passes as it is; any other is
+    copied, zero-filled past D up to a multiple of 8."""
+    qkv = torch.randn((2, 5, 3, 2, 64)).to(torch.bfloat16)
+    views = [qkv[:, :, i] for i in range(3)]
+    same, Dp = fa._tc_layout(*views)
+    assert Dp == 64 and all(a is b for a, b in zip(same, views))
+    x = torch.randn((2, 5, 3, 2, 36)).to(torch.bfloat16)[:, :, 1]
+    (padded,), Dp = fa._tc_layout(x)
+    assert Dp == 40 and padded.shape == (2, 5, 2, 40) and padded.is_contiguous()
+    assert torch.equal(padded[..., :36], x) and not padded[..., 36:].any()
+    odd = torch.randn((2, 5, 3, 40)).to(torch.bfloat16)[:, :, 1:]  # head stride 40, base +80 B
+    (copied,), Dp = fa._tc_layout(odd)
+    assert Dp == 40 and torch.equal(copied, odd)
+    assert copied.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in copied.stride()[:3])
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_card():
     """Each CUDA kernel against its plain version on the card (bf16 and
-    f32, causal and ragged); counts one launch per kernel call."""
+    f32, causal and ragged), then the bf16 tensor-core kernels' tile and
+    layout edges (L around the 64-row tiles, D of 40, 64 and 128, a D=36
+    padded copy, Lq != Lk, q/k/v as views of one [B, L, 3, H, D] tensor);
+    counts one launch per kernel call, and dK/dV gives the same bits twice."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
-    cases = [((2, 200, 3, 64), 200, True), ((1, 100, 2, 64), 300, False)]
-    for dtype, atol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
-        for (B, Lq, H, D), Lk, causal in cases:
-            g = torch.Generator(device="cuda").manual_seed(0)
+    cases = [(torch.float32, 1e-4, (2, 200, 3, 64), 200, True, False),
+             (torch.float32, 1e-4, (1, 100, 2, 64), 300, False, False),
+             (torch.bfloat16, 1e-2, (2, 200, 3, 64), 200, True, False),
+             (torch.bfloat16, 1e-2, (1, 100, 2, 64), 300, False, False)]
+    cases += [(torch.bfloat16, 1e-2, (2, L, 2, D), L, True, False)
+              for L in (64, 65, 127, 128, 129) for D in (40, 64, 128)]
+    cases += [(torch.bfloat16, 1e-2, shape, Lk, causal, views)
+              for shape, Lk, causal, views in (
+                  ((2, 129, 2, 36), 129, True, False),
+                  ((2, 65, 2, 128), 129, False, False),
+                  ((1, 129, 2, 40), 64, False, False),
+                  ((2, 127, 2, 64), 127, True, True),
+                  ((2, 65, 2, 36), 65, True, True))]
+    for dtype, atol, (B, Lq, H, D), Lk, causal, views in cases:
+        g = torch.Generator(device="cuda").manual_seed(0)
+        if views:
+            qkv = torch.randn((B, Lq, 3, H, D), generator=g, device="cuda").to(dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            do = torch.randn((B, Lq, H, D), generator=g, device="cuda").to(dtype)
+        else:
             q, do = (torch.randn((B, Lq, H, D), generator=g, device="cuda").to(dtype)
                      for _ in range(2))
             k, v = (torch.randn((B, Lk, H, D), generator=g, device="cuda").to(dtype)
                     for _ in range(2))
-            s = D**-0.5
-            fa.reset_launch_counts()
-            out, lse = fa.flash_fwd(q, k, v, causal, s)
-            out_r, lse_r = fa.flash_fwd_reference(q, k, v, causal, s)
-            delta = fa.softmax_delta(out_r, do)
-            got = [out, lse, *fa.flash_bwd_dkv(q, k, v, do, lse_r, delta, causal, s),
-                   fa.flash_bwd_dq(q, k, v, do, lse_r, delta, causal, s)]
-            ref = [out_r, lse_r,
-                   *fa.flash_bwd_dkv_reference(q, k, v, do, lse_r, delta, causal, s),
-                   fa.flash_bwd_dq_reference(q, k, v, do, lse_r, delta, causal, s)]
-            torch.cuda.synchronize()
-            for a, b in zip(got, ref):
-                torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=atol)
-            assert fa.launch_counts() == {
-                "flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1,
-            }
+        s = D**-0.5
+        fa.reset_launch_counts()
+        out, lse = fa.flash_fwd(q, k, v, causal, s)
+        out_r, lse_r = fa.flash_fwd_reference(q, k, v, causal, s)
+        delta = fa.softmax_delta(out_r, do)
+        got = [out, lse, *fa.flash_bwd_dkv(q, k, v, do, lse_r, delta, causal, s),
+               fa.flash_bwd_dq(q, k, v, do, lse_r, delta, causal, s)]
+        ref = [out_r, lse_r,
+               *fa.flash_bwd_dkv_reference(q, k, v, do, lse_r, delta, causal, s),
+               fa.flash_bwd_dq_reference(q, k, v, do, lse_r, delta, causal, s)]
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=atol)
+        assert fa.launch_counts() == {
+            "flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1,
+        }
+        again = fa.flash_bwd_dkv(q, k, v, do, lse_r, delta, causal, s)
+        assert all(torch.equal(a, b) for a, b in zip(again, got[2:4]))
