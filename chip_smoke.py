@@ -14,8 +14,8 @@ and the script exits non-zero:
               aligned and ragged shapes, and in bf16 the tensor-core
               kernels' tile and layout edges (L around the 64-row tiles,
               D of 40, 64 and 128, a D=36 padded copy, Lq != Lk, q/k/v as
-              strided views of one [B, L, 3, H, D] tensor); dK/dV must be
-              bit-identical across two launches;
+              strided views of one [B, L, 3, H, D] tensor); dK/dV and dQ
+              must be bit-identical across two launches;
 3. timing   — each kernel's median time at the main path's shape, beside
               its bound (with its multiple of it and its TFLOP/s), its
               plain version and the PyTorch library call (SDPA, timed by
@@ -32,10 +32,12 @@ and the script exits non-zero:
               shapes against the f64 product;
 7. ring     — the Z_2^64 ring-matmul kernel against its plain version
               (torch.equal: ring arithmetic is exact) and numpy uint64:
-              ragged, all-ones, batched, stride-0 and two-batch-axis
-              operands and the SMPC path's two shapes;
-8. ring timing — its median time at those two shapes, beside its bound,
-              its plain version and torch.matmul on int64 CUDA tensors;
+              ragged, all-ones (one with K = 20000, past several of the
+              kernel's folds of its s32 partials), batched, stride-0 and
+              two-batch-axis operands and the SMPC path's two shapes;
+8. ring timing — its median time (events and device time) at those two
+              shapes, beside its bound, the replaced u64 kernel's time, its
+              plain version and torch.matmul on int64 CUDA tensors;
 9. smpc     — the SMPC path: batched_beaver at bench_smpc's two
               configurations (B=512 of 3-party 64x64, B=8 of 512x512),
               rounds held to the exact product, 4 ring launches a round;
@@ -64,8 +66,8 @@ import torch
 # to bf16 at points that differ between the online-softmax kernel and the
 # one-pass plain version, and one bf16 ulp is 2^-8 to 2^-7 relative. On an
 # H100 the worst errors seen were 3.9e-3 (forward out), 7.8e-3 (dK/dV, on
-# elements of magnitude >= 1, where the bound is >= 2e-2) and 2.0e-3 (dQ),
-# all at the main path's shape. f32 at atol 1e-4 + rtol 1e-4 (f32 sums over
+# elements of magnitude >= 1, where the bound is >= 2e-2) and 3.9e-3 (dQ on
+# the tensor cores; 2.0e-3 on the CUDA cores), all at the main path's shape. f32 at atol 1e-4 + rtol 1e-4 (f32 sums over
 # up to 512 terms in another order; worst seen 9.5e-7).
 TOL = {torch.bfloat16: (1e-2, 1e-2), torch.float32: (1e-4, 1e-4)}
 
@@ -79,14 +81,19 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES = 3.35e12
 
 
-# dynamic shared memory of the bf16 tensor-core kernels at padded head dim
-# dp, as launch_fwd_tc and launch_dkv_tc size it: bf16 tiles of pitch dp + 8
-# (forward: 64 rows of Q and two buffers each of 64 rows of K and V; dK/dV:
-# 64 rows each of K and V and two buffers each of 32 rows of Q and dO, plus
-# two buffers of 32 f32 lse and Delta)
+# dynamic shared memory of the tensor-core kernels, as their launchers size
+# it. The bf16 flash kernels at padded head dim dp: bf16 tiles of pitch
+# dp + 8 (forward: 64 rows of Q and two buffers each of 64 rows of K and V;
+# dK/dV: 64 rows each of K and V and two buffers each of 32 rows of Q and
+# dO, plus two buffers of 32 f32 lse and Delta; dQ: 64 rows each of Q and dO
+# and two buffers each of 64 rows of K and V). The ring matmul, one size:
+# two buffers of a staged K slice, 128 rows (A's 64, B's 64) of 34 u64, and
+# two of its eight u8 limb planes of 128 rows x 48 bytes.
 TC_SMEM = {
     "flash_fwd": lambda dp: 2 * (64 + 4 * 64) * (dp + 8),
     "flash_bwd_dkv": lambda dp: 2 * (2 * 64 + 4 * 32) * (dp + 8) + 4 * 4 * 32,
+    "flash_bwd_dq": lambda dp: 2 * (2 * 64 + 4 * 64) * (dp + 8),
+    "ring_matmul": 2 * 8 * 128 * 34 + 2 * 8 * 128 * 48,
 }
 
 
@@ -128,8 +135,9 @@ def phase_build() -> None:
                 check(line.split()[4] == "0" and line.split()[8] == "0",
                       f"a tensor-core kernel spills registers: {entry.strip()}: {line.strip()}")
     for name, smem in TC_SMEM.items():
-        print(f"[build] {name} bf16 tensor-core kernel, dynamic shared memory a block: "
-              + ", ".join(f"D<={dp} {smem(dp)} B" for dp in (48, 64, 128)))
+        sizes = (", ".join(f"D<={dp} {smem(dp)} B" for dp in (48, 64, 128)) if callable(smem)
+                 else f"{smem} B")
+        print(f"[build] {name} tensor-core kernel, dynamic shared memory a block: {sizes}")
 
 
 # --------------------------------------------------------------------------
@@ -173,8 +181,8 @@ def _poison() -> None:
 
 def compare_case(shape_q, Lk, dtype, causal, seed=0, views=False):
     """Each kernel against its plain version on the same inputs; returns
-    the max abs error of each. The dK/dV kernel runs twice and must give
-    the same bits (it writes each tile once, with no atomics)."""
+    the max abs error of each. The dK/dV and dQ kernels run twice and must
+    give the same bits (they write each tile once, with no atomics)."""
     from pygrid_tpu_torch.parallel import flash_attention as fa
 
     q, k, v, do = _inputs(shape_q, Lk, dtype, seed, views)
@@ -206,7 +214,10 @@ def compare_case(shape_q, Lk, dtype, causal, seed=0, views=False):
     dq_r = fa.flash_bwd_dq_reference(q, k, v, do, lse_r, delta, causal, scale)
     _poison()
     dq_k = fa.flash_bwd_dq(q, k, v, do, lse_r, delta, causal, scale)
+    _poison()
+    dq_2 = fa.flash_bwd_dq(q, k, v, do, lse_r, delta, causal, scale)
     torch.cuda.synchronize()
+    check(torch.equal(dq_k, dq_2), f"dq {tag}: two launches on the same inputs gave different bits")
     errs["flash_bwd_dq"] = _err(dq_k, dq_r, dtype, f"dq {tag}")
     print(f"[kernels] {tag}: " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
     return errs
@@ -389,7 +400,8 @@ def phase_timing() -> dict:
               f"bound, {flops / kernel_ms / 1e9:.1f} TFLOP/s, plain {plain_ms:.4f} ms, library "
               f"{lib_dev:.4f} ms device time ({lib_ev:.4f} ms by events; "
               + ("SDPA backward, all of dq/dk/dv)" if name != "flash_fwd" else "SDPA forward)")
-              + f", kernel / library by device time {dev_ms[name] / lib_dev:.2f}")
+              + f", kernel / library by device time {dev_ms[name] / lib_dev:.2f}, device time "
+              f"{dev_ms[name] / bound:.1f}x the bound")
     return result
 
 
@@ -736,9 +748,12 @@ def phase_ring_kernel() -> int:
         a, b = _ring_np(rng, sa), _ring_np(rng, sb)
         worst = max(worst, check_ring(R.to_ring(a, dev), R.to_ring(b, dev), f"{sa} @ {sb}",
                                       _np_u64_matmul(a, b)))
-    ones = np.full((8, 1600), 2**64 - 1, dtype=np.uint64)
-    worst = max(worst, check_ring(R.to_ring(ones, dev), R.to_ring(ones.T.copy(), dev),
-                                  "all-ones (8, 1600) @ (1600, 8)", _np_u64_matmul(ones, ones.T)))
+    # all-ones: the largest limbs; K = 20000 folds the kernel's s32 partials
+    # four times (every 4096 of K), and unfolded they would pass 2^32
+    for K in (1600, 20000):
+        ones = np.full((8, K), 2**64 - 1, dtype=np.uint64)
+        worst = max(worst, check_ring(R.to_ring(ones, dev), R.to_ring(ones.T.copy(), dev),
+                                      f"all-ones (8, {K}) @ ({K}, 8)", _np_u64_matmul(ones, ones.T)))
     d, b = _ring_np(rng, (40, 33)), _ring_np(rng, (5, 33, 21))
     worst = max(worst, check_ring(
         R.to_ring(d, dev).expand(5, 40, 33), R.to_ring(b, dev), "stride-0 batch (5, 40, 33) @ (5, 33, 21)",
@@ -782,11 +797,17 @@ def library_int64_matmul(a, b, ref):
     return time_ms(lambda: torch.matmul(a, b)), "torch.matmul on int64 CUDA tensors (exact)"
 
 
+# the u64 CUDA-core kernel that the tensor-core kernel replaced, ms per
+# launch by events at each (B, M, K, N) on an NVIDIA H100 80GB HBM3 at
+# 700.00 W, as PERF.md records them (0.0608-0.0616 at the smaller shape)
+RING_U64_MS = {(512, 64, 64, 64): 0.0612, (8, 512, 512, 512): 0.3962}
+
+
 def phase_ring_timing() -> dict:
-    """Median ms per launch of the kernel at the main path's two shapes,
-    beside the bound, the plain version and the library call. The JSON
-    line carries the [8, 512, 512] launch, where the main path spends most
-    of the kernel's time."""
+    """Median ms per launch of the kernel at the main path's two shapes, by
+    events and by device time, beside the bound, the u64 kernel's, the plain
+    version and the library call. The JSON line carries the [8, 512, 512]
+    launch, where the main path spends most of the kernel's time."""
     from pygrid_tpu_torch.smpc import ring as R
     from pygrid_tpu_torch.smpc import ring_matmul as rm
 
@@ -796,15 +817,18 @@ def phase_ring_timing() -> dict:
         a = R.ring_random(g, (B, M, K))
         b = R.ring_random(g, (B, K, N))
         kernel_ms = time_ms(lambda: rm.ring_matmul_kernel(a, b))
+        dev_ms = device_ms(lambda: rm.ring_matmul_kernel(a, b))
         plain_ms = time_ms(lambda: rm.ring_matmul_reference(a, b), iters=5)
         lib_ms, lib_note = library_int64_matmul(a, b, rm.ring_matmul_reference(a, b))
         bound, by, ops, nbytes = ring_bound(B, M, K, N)
         result = {"ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
                   "library_ms": lib_ms}
-        print(f"[ring timing] ({B}, {M}, {K}) @ ({B}, {K}, {N}): kernel {kernel_ms:.4f} ms, "
+        print(f"[ring timing] ({B}, {M}, {K}) @ ({B}, {K}, {N}): kernel {kernel_ms:.4f} ms "
+              f"(device time {dev_ms:.4f} ms; the u64 kernel's {RING_U64_MS[(B, M, K, N)]:.4f} ms, "
+              f"{RING_U64_MS[(B, M, K, N)] / kernel_ms:.2f}x), "
               f"bound {bound:.4f} ms ({by}; {ops / 1e9:.2f} G int8 ops, {nbytes / 1e6:.1f} MB), "
-              f"{kernel_ms / bound:.1f}x the bound, {B * M * N * K / kernel_ms / 1e9:.3f} "
-              f"T 64-bit multiply-adds/s, plain {plain_ms:.4f} ms, library "
+              f"{kernel_ms / bound:.1f}x the bound ({dev_ms / bound:.1f}x by device time), "
+              f"{ops / dev_ms / 1e9:.1f} T int8 ops/s, plain {plain_ms:.4f} ms, library "
               f"{'%.4f ms' % lib_ms if lib_ms is not None else 'none'} ({lib_note})")
     return result
 

@@ -39,12 +39,33 @@
 // and fails on a spill. The shared memory is 70 KB a block at D = 128, so
 // registers, not shared memory, hold it to 2 blocks an SM.
 //
-// The f32 dK/dV kernel (the f32 parity checks, held at 1e-4) and the dQ
-// kernel in both dtypes are f32 FMA on the CUDA cores from f32 tiles in
-// shared memory, 64-row tiles, 256 threads with a 4x4 register tile each.
+// dQ in bf16 (the main path), flash_bwd_dq_tc_kernel, the mirror image:
+// one block of 4 warps per (b*h, 64-query tile), each warp owning 16
+// queries, looping over the 64-key tiles (up to the diagonal, when causal;
+// the query tiles launch in reverse order so the longest causal rows start
+// first). dQ is bound by bytes (84.4 MB, 25 us at 3.35 TB/s); the f32 FMA
+// kernel it replaces widened its bf16 tiles to f32 in shared memory (twice
+// the bytes) and never reached the tensor cores. Here Q and dO are copied
+// once by cp.async and K and V are double-buffered as bf16, so the next key
+// tile's copy runs under this tile's math; lse and Delta are per query row
+// and live in registers (each thread holds rows g and g + 8). S = Q K^T and
+// dP = dO V^T run as m16n8k16 mma.sync with Q and dO as A fragments
+// (re-read by ldmatrix for each key tile: holding them would cost 128
+// registers at D = 128) and K and V as B fragments by non-transposed
+// ldmatrix; P and dS are formed in f32 registers; bf16(dS) goes from the C
+// fragments straight to the A fragment of dQ += dS K (the reference's
+// ds.astype(k.dtype)), with K as B through ldmatrix.trans. dQ stays in f32
+// registers (64 a thread at D = 128) and is written once, staged through
+// shared memory, with 16-byte stores: no atomics, so it is bit-identical
+// from launch to launch. 102 KB of shared memory a block at D = 128.
 //
-// Next steps: dQ on the tensor cores in the same shape, then wgmma fed by
-// TMA with a producer warp, and a persistent schedule over the tiles.
+// The f32 dK/dV and dQ kernels (the f32 parity checks, held at 1e-4, which
+// neither bf16 nor TF32 tensor cores give) are f32 FMA on the CUDA cores
+// from f32 tiles in shared memory, 64-row tiles, 256 threads with a 4x4
+// register tile each.
+//
+// Next steps: wgmma fed by TMA with a producer warp, and a persistent
+// schedule over the tiles.
 //
 // The TPU's sequential "arbitrary" grid axis (q innermost for dK/dV, k
 // innermost for dQ) becomes the loop over tiles inside one thread block.
@@ -57,14 +78,13 @@ namespace pgt {
 
 // grid (ceil(Lk / TILE), B*H): one block per (b*h, 64-key tile), looping
 // over the query tiles; dK and dV stay in registers for the whole loop.
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
-                     const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int Lq, int Lk, int D, int q_sb, int q_sl,
-                     int q_sh, int o_sb, int o_sl, int o_sh, int k_sb, int k_sl, int k_sh,
-                     int v_sb, int v_sl, int v_sh, float scale, int causal) {
+                     const float* __restrict__ k, const float* __restrict__ v,
+                     float* __restrict__ dk, float* __restrict__ dv, int H, int Lq, int Lk,
+                     int D, int q_sb, int q_sl, int q_sh, int o_sb, int o_sl, int o_sh, int k_sb,
+                     int k_sl, int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal) {
   extern __shared__ float smem[];
   const int pitch = pitch_of(D);
   float* sK = smem;                    // [TILE][pitch]
@@ -81,10 +101,10 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ dout,
   const int h = bh - b * H;
   const int kt = blockIdx.x;
   const int k0 = kt * TILE;
-  const T* qb = q + (long long)b * q_sb + (long long)h * q_sh;
-  const T* ob = dout + (long long)b * o_sb + (long long)h * o_sh;
-  const T* kb = k + (long long)b * k_sb + (long long)h * k_sh;
-  const T* vb = v + (long long)b * v_sb + (long long)h * v_sh;
+  const float* qb = q + (long long)b * q_sb + (long long)h * q_sh;
+  const float* ob = dout + (long long)b * o_sb + (long long)h * o_sh;
+  const float* kb = k + (long long)b * k_sb + (long long)h * k_sh;
+  const float* vb = v + (long long)b * v_sb + (long long)h * v_sh;
   const float* lse_b = lse + (long long)bh * Lq;
   const float* delta_b = delta + (long long)bh * Lq;
 
@@ -152,8 +172,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ dout,
         // from overflowing before the select
         const float p = valid ? expf(fminf(s[i][j] * scale - sLse[c], 0.f)) : 0.f;
         const float ds = p * (dp[i][j] - sDelta[c]) * scale;
-        sP[r * SPITCH + c] = round_to<T>(p);
-        sS[r * SPITCH + c] = round_to<T>(ds);
+        sP[r * SPITCH + c] = p;
+        sS[r * SPITCH + c] = ds;
       }
     }
     __syncthreads();
@@ -191,8 +211,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ dout,
     for (int j = 0; j < JD; ++j) {
       const int c = tx + 16 * j;
       if (c < D) {
-        dk[row + c] = from_f<T>(acc_dk[i][j]);
-        dv[row + c] = from_f<T>(acc_dv[i][j]);
+        dk[row + c] = acc_dk[i][j];
+        dv[row + c] = acc_dv[i][j];
       }
     }
   }
@@ -200,14 +220,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ dout,
 
 // grid (ceil(Lq / TILE), B*H): one block per (b*h, 64-query tile), looping
 // over the key tiles; dQ stays in registers for the whole loop.
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
-                    const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ dq, int H,
-                    int Lq, int Lk, int D, int q_sb, int q_sl, int q_sh, int o_sb, int o_sl,
-                    int o_sh, int k_sb, int k_sl, int k_sh, int v_sb, int v_sl, int v_sh,
-                    float scale, int causal) {
+                    const float* __restrict__ k, const float* __restrict__ v,
+                    float* __restrict__ dq, int H, int Lq, int Lk, int D, int q_sb, int q_sl,
+                    int q_sh, int o_sb, int o_sl, int o_sh, int k_sb, int k_sl, int k_sh,
+                    int v_sb, int v_sl, int v_sh, float scale, int causal) {
   extern __shared__ float smem[];
   const int pitch = pitch_of(D);
   float* sQ = smem;                    // [TILE][pitch]
@@ -223,10 +242,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ dout,
   const int h = bh - b * H;
   const int qt = blockIdx.x;
   const int q0 = qt * TILE;
-  const T* qb = q + (long long)b * q_sb + (long long)h * q_sh;
-  const T* ob = dout + (long long)b * o_sb + (long long)h * o_sh;
-  const T* kb = k + (long long)b * k_sb + (long long)h * k_sh;
-  const T* vb = v + (long long)b * v_sb + (long long)h * v_sh;
+  const float* qb = q + (long long)b * q_sb + (long long)h * q_sh;
+  const float* ob = dout + (long long)b * o_sb + (long long)h * o_sh;
+  const float* kb = k + (long long)b * k_sb + (long long)h * k_sh;
+  const float* vb = v + (long long)b * v_sb + (long long)h * v_sh;
 
   const int tx = threadIdx.x & 15;  // key columns tx + 16 j / head dims
   const int ty = threadIdx.x >> 4;  // query rows 4 ty + i
@@ -287,7 +306,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ dout,
         const int kpos = k0 + c;
         const bool valid = qpos < Lq && kpos < Lk && (!causal || qpos >= kpos);
         const float p = valid ? expf(fminf(s[i][j] * scale - sLse[r], 0.f)) : 0.f;
-        sS[r * SPITCH + c] = round_to<T>(p * (dp[i][j] - sDelta[r]) * scale);
+        sS[r * SPITCH + c] = p * (dp[i][j] - sDelta[r]) * scale;
       }
     }
     __syncthreads();
@@ -313,48 +332,46 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ dout,
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + 4 * ty + i;
     if (qpos >= Lq) continue;
-    T* row = dq + (((long long)b * Lq + qpos) * H + h) * D;
+    float* row = dq + (((long long)b * Lq + qpos) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < JD; ++j) {
       const int c = tx + 16 * j;
-      if (c < D) row[c] = from_f<T>(acc[i][j]);
+      if (c < D) row[c] = acc[i][j];
     }
   }
 }
 
-template <typename T>
 int launch_dkv(const void* q, const void* dout, const void* lse, const void* delta,
                const void* k, const void* v, void* dk, void* dv, int B, int H, int Lq, int Lk,
                int D, int q_sb, int q_sl, int q_sh, int o_sb, int o_sl, int o_sh, int k_sb,
                int k_sl, int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal,
                cudaStream_t stream) {
   const size_t smem = sizeof(float) * (4 * TILE * pitch_of(D) + 2 * TILE * SPITCH + 2 * TILE);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Lk + TILE - 1) / TILE, B * H);
-  flash_bwd_dkv_kernel<T><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)dout, (const float*)lse, (const float*)delta, (const T*)k,
-      (const T*)v, (T*)dk, (T*)dv, H, Lq, Lk, D, q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl,
-      k_sh, v_sb, v_sl, v_sh, scale, causal);
+  flash_bwd_dkv_kernel<<<grid, THREADS, smem, stream>>>(
+      (const float*)q, (const float*)dout, (const float*)lse, (const float*)delta,
+      (const float*)k, (const float*)v, (float*)dk, (float*)dv, H, Lq, Lk, D, q_sb, q_sl, q_sh,
+      o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int launch_dq(const void* q, const void* dout, const void* lse, const void* delta,
               const void* k, const void* v, void* dq, int B, int H, int Lq, int Lk, int D,
               int q_sb, int q_sl, int q_sh, int o_sb, int o_sl, int o_sh, int k_sb, int k_sl,
               int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal,
               cudaStream_t stream) {
   const size_t smem = sizeof(float) * (4 * TILE * pitch_of(D) + TILE * SPITCH + 2 * TILE);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Lq + TILE - 1) / TILE, B * H);
-  flash_bwd_dq_kernel<T><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)dout, (const float*)lse, (const float*)delta, (const T*)k,
-      (const T*)v, (T*)dq, H, Lq, Lk, D, q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh,
-      v_sb, v_sl, v_sh, scale, causal);
+  flash_bwd_dq_kernel<<<grid, THREADS, smem, stream>>>(
+      (const float*)q, (const float*)dout, (const float*)lse, (const float*)delta,
+      (const float*)k, (const float*)v, (float*)dq, H, Lq, Lk, D, q_sb, q_sl, q_sh, o_sb, o_sl,
+      o_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -562,6 +579,191 @@ int launch_dkv_tc(const void* q, const void* dout, const void* lse, const void* 
   return (int)cudaGetLastError();
 }
 
+// ---- bf16 dQ: tensor cores -----------------------------------------------
+
+constexpr int TC_DQ_BQ = 64;  // queries per block, 16 per warp
+constexpr int TC_DQ_BK = 64;  // keys per K/V tile
+
+template <int DP>
+__global__ void __launch_bounds__(TC_THREADS, 2)
+flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                       const float* __restrict__ delta, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ dq,
+                       int H, int Lq, int Lk, int D, int q_sb, int q_sl, int q_sh, int o_sb,
+                       int o_sl, int o_sh, int k_sb, int k_sl, int k_sh, int v_sb, int v_sl,
+                       int v_sh, float scale, int causal) {
+  using namespace tc;
+  constexpr int P = DP + PAD;  // row pitch of every shared tile
+  constexpr int BQ = TC_DQ_BQ, BK = TC_DQ_BK;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][P], then dQ
+  __nv_bfloat16* sO = sQ + BQ * P;                                   // [BQ][P] dO
+  __nv_bfloat16* sK = sO + BQ * P;                                   // [2][BK][P]
+  __nv_bfloat16* sV = sK + 2 * BK * P;                               // [2][BK][P]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
+  const int q0 = qt * BQ;
+  const __nv_bfloat16* qb = q + (long long)b * q_sb + (long long)h * q_sh;
+  const __nv_bfloat16* ob = dout + (long long)b * o_sb + (long long)h * o_sh;
+  const __nv_bfloat16* kb = k + (long long)b * k_sb + (long long)h * k_sh;
+  const __nv_bfloat16* vb = v + (long long)b * v_sb + (long long)h * v_sh;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // fragment row (and row + 8): queries
+  const int t = lane & 3;   // fragment column pair: keys
+  const int wrow = warp * 16;
+
+  int n_k = (Lk + BK - 1) / BK;
+  // causal: a K tile whose first key is past the block's last query is all
+  // masked (kt * BK > q0 + BQ - 1) and is skipped
+  if (causal && n_k > (q0 + BQ - 1) / BK + 1) n_k = (q0 + BQ - 1) / BK + 1;
+
+  load_tile_async<BQ, DP, TC_THREADS>(sQ, qb, q_sl, q0, Lq, D);
+  load_tile_async<BQ, DP, TC_THREADS>(sO, ob, o_sl, q0, Lq, D);
+  load_tile_async<BK, DP, TC_THREADS>(sK, kb, k_sl, 0, Lk, D);
+  load_tile_async<BK, DP, TC_THREADS>(sV, vb, v_sl, 0, Lk, D);
+  cp_async_commit();
+
+  // lse (log2 units) and Delta of rows g and g + 8, in registers; pad
+  // queries read 0 and are masked below
+  const float sl2 = scale * 1.4426950408889634f;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int qpos = q0 + wrow + g + 8 * hh;
+    const bool in = qpos < Lq;
+    lse2[hh] = in ? lse[(long long)bh * Lq + qpos] * 1.4426950408889634f : 0.f;
+    dlt[hh] = in ? delta[(long long)bh * Lq + qpos] : 0.f;
+  }
+
+  float acc[DP / 8][4];  // dQ, f32, for the whole loop
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < n_k) {  // the next tile's copy runs under this tile's math
+      const int nk0 = (kt + 1) * BK;
+      load_tile_async<BK, DP, TC_THREADS>(sK + (cur ^ 1) * BK * P, kb, k_sl, nk0, Lk, D);
+      load_tile_async<BK, DP, TC_THREADS>(sV + (cur ^ 1) * BK * P, vb, v_sl, nk0, Lk, D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile kt (and at kt = 0, Q and dO) has landed
+    const __nv_bfloat16* Kt = sK + cur * BK * P;
+    const __nv_bfloat16* Vt = sV + cur * BK * P;
+
+    // S = Q K^T and dP = dO V^T: 16 queries x BK keys per warp; Q and dO
+    // are A fragments re-read by ldmatrix for each key tile, K and V B
+    // fragments by non-transposed ldmatrix (a [key][d] row is the .col layout)
+    float s[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = dp[j][c] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks) {
+      uint32_t qf[4], of[4];
+      ldmatrix_x4(qf, sQ + (wrow + (lane & 15)) * P + ks * 16 + (lane >> 4) * 8);
+      ldmatrix_x4(of, sO + (wrow + (lane & 15)) * P + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        const int off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * P + ks * 16 +
+                        ((lane >> 3) & 1) * 8;
+        uint32_t kf[4], vf[4];  // B fragments of key tiles 2np and 2np+1
+        ldmatrix_x4(kf, Kt + off);
+        ldmatrix_x4(vf, Vt + off);
+        mma_bf16(s[2 * np], qf, kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qf, kf[2], kf[3]);
+        mma_bf16(dp[2 * np], of, vf[0], vf[1]);
+        mma_bf16(dp[2 * np + 1], of, vf[2], vf[3]);
+      }
+    }
+
+    // P = exp(min(S scale - lse, 0)) and dS = P (dP - Delta) scale, f32;
+    // invalid pairs (pad query, pad key, causal) only on the diagonal and
+    // ragged tiles, where they become 0
+    const int k0 = kt * BK;
+    const bool need_mask = (causal && k0 + BK - 1 > q0) || q0 + BQ > Lq || k0 + BK > Lk;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int hh = c >> 1;
+        // exp(s - lse) <= 1 on live lanes; the clamp keeps dead lanes from
+        // overflowing before the select
+        float p = exp2f(fminf(s[j][c] * sl2 - lse2[hh], 0.f));
+        if (need_mask) {
+          const int qpos = q0 + wrow + g + 8 * hh;
+          const int kpos = k0 + 8 * j + 2 * t + (c & 1);
+          if (qpos >= Lq || kpos >= Lk || (causal && qpos < kpos)) p = 0.f;
+        }
+        dp[j][c] = p * (dp[j][c] - dlt[hh]) * scale;
+      }
+    }
+
+    // dQ += bf16(dS) K: the C fragments of key tiles 2kk, 2kk+1 are the A
+    // fragment of k-step kk; K is the B operand through ldmatrix.trans
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t da[4] = {
+          pack_bf16(dp[2 * kk][0], dp[2 * kk][1]), pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+          pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+          pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+      for (int np = 0; np < DP / 16; ++np) {
+        uint32_t kf[4];  // B fragments of head-dim tiles 2np and 2np+1
+        ldmatrix_x4_trans(kf, Kt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
+                                  np * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * np], da, kf[0], kf[1]);
+        mma_bf16(acc[2 * np + 1], da, kf[2], kf[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with buffer `cur` before it is refilled
+  }
+
+  // stage dQ as bf16 over Q (the loop ended on a barrier), then store it
+  // coalesced
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    const int col = n * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(sQ + (wrow + g) * P + col) = pack_bf16(acc[n][0], acc[n][1]);
+    *reinterpret_cast<uint32_t*>(sQ + (wrow + g + 8) * P + col) =
+        pack_bf16(acc[n][2], acc[n][3]);
+  }
+  __syncthreads();
+  store_tile<BQ, DP, TC_THREADS>(dq + ((long long)b * Lq * H + h) * D, (long long)H * D, sQ, q0,
+                                 Lq, D);
+}
+
+template <int DP>
+int launch_dq_tc(const void* q, const void* dout, const void* lse, const void* delta,
+                 const void* k, const void* v, void* dq, int B, int H, int Lq, int Lk, int D,
+                 int q_sb, int q_sl, int q_sh, int o_sb, int o_sl, int o_sh, int k_sb, int k_sl,
+                 int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal,
+                 cudaStream_t stream) {
+  const size_t smem = sizeof(__nv_bfloat16) * (2 * TC_DQ_BQ + 4 * TC_DQ_BK) * (DP + tc::PAD);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (Lq + TC_DQ_BQ - 1) / TC_DQ_BQ);
+  flash_bwd_dq_tc_kernel<DP><<<grid, TC_THREADS, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)dout, (const float*)lse,
+      (const float*)delta, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (__nv_bfloat16*)dq,
+      H, Lq, Lk, D, q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale,
+      causal);
+  return (int)cudaGetLastError();
+}
+
 inline bool bad_shape(int B, int H, int Lq, int Lk, int D) {
   return D < 1 || D > MAX_D || Lq < 1 || Lk < 1 || B * H < 1 || B * H > 65535;
 }
@@ -601,12 +803,13 @@ extern "C" int pgt_flash_bwd_dkv(const void* q, const void* dout, const void* ls
                                        v_sl, v_sh, scale, causal, s);
     }
   }
-  return pgt::launch_dkv<float>(q, dout, lse, delta, k, v, dk, dv, B, H, Lq, Lk, D, q_sb, q_sl,
+  return pgt::launch_dkv(q, dout, lse, delta, k, v, dk, dv, B, H, Lq, Lk, D, q_sb, q_sl,
                                 q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh,
                                 scale, causal, s);
 }
 
-// dq: contiguous [B, Lq, H, D] in the input dtype.
+// dq: contiguous [B, Lq, H, D] in the input dtype. bf16 runs on the tensor
+// cores with the layout preconditions of pgt_flash_bwd_dkv.
 extern "C" int pgt_flash_bwd_dq(const void* q, const void* dout, const void* lse,
                                 const void* delta, const void* k, const void* v, void* dq, int B,
                                 int H, int Lq, int Lk, int D, int q_sb, int q_sl, int q_sh,
@@ -615,11 +818,27 @@ extern "C" int pgt_flash_bwd_dq(const void* q, const void* dout, const void* lse
                                 int is_bf16, void* stream) {
   if (pgt::bad_shape(B, H, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    return pgt::launch_dq<__nv_bfloat16>(q, dout, lse, delta, k, v, dq, B, H, Lq, Lk, D, q_sb,
-                                         q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb,
-                                         v_sl, v_sh, scale, causal, s);
-  return pgt::launch_dq<float>(q, dout, lse, delta, k, v, dq, B, H, Lq, Lk, D, q_sb, q_sl, q_sh,
+  if (is_bf16) {
+    using pgt::tc::layout_ok;
+    if (!layout_ok(q, D, q_sb, q_sl, q_sh) || !layout_ok(dout, D, o_sb, o_sl, o_sh) ||
+        !layout_ok(k, D, k_sb, k_sl, k_sh) || !layout_ok(v, D, v_sb, v_sl, v_sh))
+      return (int)cudaErrorInvalidValue;
+    switch (pgt::tc::padded_d(D)) {
+      case 48:
+        return pgt::launch_dq_tc<48>(q, dout, lse, delta, k, v, dq, B, H, Lq, Lk, D, q_sb, q_sl,
+                                     q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh,
+                                     scale, causal, s);
+      case 64:
+        return pgt::launch_dq_tc<64>(q, dout, lse, delta, k, v, dq, B, H, Lq, Lk, D, q_sb, q_sl,
+                                     q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh,
+                                     scale, causal, s);
+      default:
+        return pgt::launch_dq_tc<128>(q, dout, lse, delta, k, v, dq, B, H, Lq, Lk, D, q_sb, q_sl,
+                                      q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh,
+                                      scale, causal, s);
+    }
+  }
+  return pgt::launch_dq(q, dout, lse, delta, k, v, dq, B, H, Lq, Lk, D, q_sb, q_sl, q_sh,
                                o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale,
                                causal, s);
 }

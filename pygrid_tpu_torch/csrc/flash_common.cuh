@@ -8,12 +8,12 @@
 // allocated contiguous [B, L, H, D]; the per-row statistics (lse, delta)
 // are contiguous f32 [B*H, Lq].
 //
-// The FMA kernels (every f32 kernel, and dQ in bf16 too) compute on f32
-// copies of their tiles in shared memory, loaded by the helpers below; the
-// bf16 forward and dK/dV kernels run on the tensor cores from bf16 tiles
-// (tc_common.cuh). Ragged edges are handled by masking inside the kernels:
-// rows past L load as zero and are never written, columns past D are never
-// written, so nothing is padded in device memory -- except that the
+// The f32 kernels are FMA on the CUDA cores from tiles in shared memory,
+// loaded by the helpers below; the bf16 forward, dK/dV and dQ kernels run on
+// the tensor cores from bf16 tiles (tc_common.cuh). Ragged edges are handled
+// by masking inside the kernels: rows past L load as zero and are never
+// written, columns past D are never written, so nothing is padded in device
+// memory -- except that the
 // tensor-core kernels' 16-byte copies need D and the strides in multiples
 // of 8 elements, and the wrapper pads a view that does not meet that.
 #pragma once
@@ -32,38 +32,19 @@ constexpr float NEG = -1e30f;  // finite "-inf" of the running max
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
-
-// A value as the operand of a product in T: the TPU kernels cast P and dS
-// to the input dtype before their second dot, and so do these.
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f<T>(from_f<T>(x));
-}
-
 // Row pitch of a [TILE, D] tile in shared memory: the +1 puts neighbouring
 // rows in neighbouring banks for the column-wise reads of the products.
 __host__ __device__ __forceinline__ int pitch_of(int D) { return D + 1; }
 
 // Copy rows [row0, row0 + TILE) of one (b, h) slice into shared memory as
 // f32; rows at or past L read as zero.
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, int pitch, const T* src,
+__device__ __forceinline__ void load_tile(float* dst, int pitch, const float* src,
                                           long long row_stride, int row0, int L, int D) {
   for (int i = threadIdx.x; i < TILE * D; i += THREADS) {
     const int r = i / D;
     const int c = i - r * D;
     const int row = row0 + r;
-    dst[r * pitch + c] = row < L ? to_f<T>(src[(long long)row * row_stride + c]) : 0.f;
+    dst[r * pitch + c] = row < L ? src[(long long)row * row_stride + c] : 0.f;
   }
 }
 

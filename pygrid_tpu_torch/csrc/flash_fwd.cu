@@ -47,12 +47,12 @@
 
 namespace pgt {
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, float* __restrict__ lse, int H, int Lq, int Lk, int D,
-                 int q_sb, int q_sl, int q_sh, int k_sb, int k_sl, int k_sh, int v_sb,
-                 int v_sl, int v_sh, float scale, int causal) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
+                 float* __restrict__ lse, int H, int Lq, int Lk, int D, int q_sb, int q_sl,
+                 int q_sh, int k_sb, int k_sl, int k_sh, int v_sb, int v_sl, int v_sh,
+                 float scale, int causal) {
   extern __shared__ float smem[];
   const int pitch = pitch_of(D);
   float* sQ = smem;                    // [TILE][pitch]
@@ -68,9 +68,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int h = bh - b * H;
   const int qt = blockIdx.x;
   const int q0 = qt * TILE;
-  const T* qb = q + (long long)b * q_sb + (long long)h * q_sh;
-  const T* kb = k + (long long)b * k_sb + (long long)h * k_sh;
-  const T* vb = v + (long long)b * v_sb + (long long)h * v_sh;
+  const float* qb = q + (long long)b * q_sb + (long long)h * q_sh;
+  const float* kb = k + (long long)b * k_sb + (long long)h * k_sh;
+  const float* vb = v + (long long)b * v_sb + (long long)h * v_sh;
 
   const int tx = threadIdx.x & 15;  // columns tx + 16 j
   const int ty = threadIdx.x >> 4;  // rows 4 ty + i
@@ -144,7 +144,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int c = sl4; c < TILE; c += 4) {
         const float p = expf(prow[c] - m_new);
         sum += p;
-        prow[c] = round_to<T>(p);
+        prow[c] = p;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -191,11 +191,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int qpos = q0 + r;
     if (qpos >= Lq) continue;
     const float inv = 1.f / fmaxf(sL[r], 1e-30f);
-    T* orow = out + (((long long)b * Lq + qpos) * H + h) * D;
+    float* orow = out + (((long long)b * Lq + qpos) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < JD; ++j) {
       const int c = tx + 16 * j;
-      if (c < D) orow[c] = from_f<T>(acc[i][j] * inv);
+      if (c < D) orow[c] = acc[i][j] * inv;
     }
   }
   for (int r = threadIdx.x; r < TILE; r += THREADS) {
@@ -204,19 +204,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <typename T>
 int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int B, int H,
                int Lq, int Lk, int D, int q_sb, int q_sl, int q_sh, int k_sb, int k_sl,
                int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal,
                cudaStream_t stream) {
   const size_t smem = sizeof(float) * (3 * TILE * pitch_of(D) + TILE * SPITCH + 3 * TILE);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((Lq + TILE - 1) / TILE, B * H);
-  flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, (float*)lse, H, Lq, Lk, D, q_sb, q_sl,
-      q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal);
+  flash_fwd_kernel<<<grid, THREADS, smem, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, (float*)lse, H, Lq, Lk, D,
+      q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -462,6 +461,6 @@ extern "C" int pgt_flash_fwd(const void* q, const void* k, const void* v, void* 
                                        k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal, s);
     }
   }
-  return pgt::launch_fwd<float>(q, k, v, out, lse, B, H, Lq, Lk, D, q_sb, q_sl, q_sh, k_sb,
+  return pgt::launch_fwd(q, k, v, out, lse, B, H, Lq, Lk, D, q_sb, q_sl, q_sh, k_sb,
                                 k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal, s);
 }

@@ -1,7 +1,8 @@
 // Tensor-core building blocks of the bf16 flash kernels (flash_fwd.cu,
-// flash_bwd.cu) for sm_90a, as inline PTX: ldmatrix fragments, the
-// m16n8k16 bf16 mma.sync with f32 accumulation, cp.async copies with
-// commit/wait groups, and bf16x2 packing.
+// flash_bwd.cu) and the int8 ring matmul (ring_matmul.cu) for sm_90a, as
+// inline PTX: ldmatrix fragments, the m16n8k16 bf16 mma.sync with f32
+// accumulation, the m16n8k32 u8 mma.sync with s32 accumulation, cp.async
+// copies with commit/wait groups, and bf16x2 packing.
 //
 // Fragment layouts of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 //   A (16 x 16, row-major): a0 (row g, cols 2t..2t+1), a1 (row g+8, the same
@@ -11,6 +12,14 @@
 // So the C fragments of two neighbouring n8 tiles are, packed to bf16, the
 // A fragment of one k16 step: that is how P and dS feed the second product
 // without passing through shared memory.
+//
+// mma.m16n8k32 on u8 holds four bytes (k, k+1, k+2, k+3) in a register:
+//   A (16 x 32, row-major): a0 (row g, k 4t..4t+3), a1 (row g+8, the same k),
+//     a2 (row g, k 4t+16..4t+19), a3 (row g+8, k 4t+16..4t+19);
+//   B (32 x 8, k x n):      b0 (k 4t..4t+3, col g), b1 (k 4t+16..4t+19, col g);
+//   C (16 x 8, s32):        as the bf16 product's.
+// An 8x8 b16 ldmatrix is 8 rows x 16 bytes, so ldmatrix on a u8 tile with k
+// contiguous gives exactly these A and B fragments, addressed as for bf16.
 //
 // Shared-memory tiles are bf16 [rows][DP + PAD]: the 16-byte pad puts the
 // eight 16-byte rows of every 8x8 ldmatrix in eight different bank groups.
@@ -57,6 +66,17 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// d += a b on the tensor cores: u8 operands, s32 accumulators (exact: the
+// products and sums are integers, and the callers keep them below 2^31)
+__device__ __forceinline__ void mma_u8(uint32_t (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // 16 bytes global -> shared, bypassing L1; with in_bounds false nothing is
 // read and the 16 bytes are zero-filled (src must still be a valid address)
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool in_bounds) {
@@ -69,6 +89,13 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool in_
 __device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool in_bounds) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(in_bounds ? 4 : 0));
+}
+
+// 8 bytes global -> shared (one u64 ring element through arbitrary
+// strides); zero-filled when in_bounds is false
+__device__ __forceinline__ void cp_async_8(void* dst, const void* src, bool in_bounds) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(in_bounds ? 8 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

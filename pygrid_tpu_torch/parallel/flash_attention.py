@@ -15,8 +15,8 @@ its kernel or raises.
 
 Tensors stay in the reference's ``[B, L, H, D]`` layout: the kernels read
 q, k, v and dO through their strides (last dimension contiguous), so no
-``[B·H, L, D]`` transpose copy is made. In bf16 the forward and the dK/dV
-kernel run on the tensor cores and copy 16-byte chunks: where a view's head
+``[B·H, L, D]`` transpose copy is made. In bf16 all three kernels run on
+the tensor cores and copy 16-byte chunks: where a view's head
 dim or strides are not multiples of 8 elements, or its base is not 16-byte
 aligned, the wrapper hands them a zero-padded contiguous copy
 (:func:`_tc_layout`, the counterpart of the reference's ``_pad_to``) and
@@ -244,17 +244,20 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
     q, k, v, do = _bwd_args(q, k, v, do)
     B, Lq, H, D = q.shape
     Lk = k.shape[1]
+    Dp = D
+    if q.dtype == torch.bfloat16:
+        (q, k, v, do), Dp = _tc_layout(q, k, v, do)
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
-    dq = torch.empty((B, Lq, H, D), dtype=q.dtype, device=q.device)
+    dq = torch.empty((B, Lq, H, Dp), dtype=q.dtype, device=q.device)
     build.launch(
         "flash_bwd", "pgt_flash_bwd_dq", q.device,
         q.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         k.data_ptr(), v.data_ptr(), dq.data_ptr(),
-        B, H, Lq, Lk, D, *_strides(q), *_strides(do), *_strides(k), *_strides(v),
+        B, H, Lq, Lk, Dp, *_strides(q), *_strides(do), *_strides(k), *_strides(v),
         float(scale), int(causal), _DTYPES[q.dtype],
     )
     bwd_dq_launches += 1
-    return dq
+    return dq[..., :D]
 
 
 def softmax_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:

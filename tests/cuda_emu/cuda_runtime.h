@@ -1,7 +1,8 @@
 // A CPU stand-in for the parts of the CUDA runtime and of PTX that the port's
-// flash kernels use, so that g++ can build pygrid_tpu_torch/csrc/flash_*.cu
-// into a host library and tests/test_torch_flash_emulated.py can run the
-// kernels' own index arithmetic on the CPU.
+// kernels use, so that g++ can build pygrid_tpu_torch/csrc/*.cu into a host
+// library and tests/test_torch_flash_emulated.py and
+// tests/test_torch_ring_emulated.py can run the kernels' own index
+// arithmetic on the CPU.
 //
 // Every CUDA thread of a block is a std::thread; blocks run one after
 // another. __syncthreads is a barrier over the block; the warp-level
@@ -42,6 +43,9 @@ struct dim3 {
 struct uint4 {
   unsigned x, y, z, w;
 };
+struct ulonglong2 {
+  unsigned long long x, y;
+};
 
 inline thread_local dim3 threadIdx;
 inline dim3 blockIdx, gridDim;
@@ -69,6 +73,14 @@ inline float __int_as_float(int x) {
   float f;
   memcpy(&f, &x, 4);
   return f;
+}
+
+// byte n of the result is byte (s >> 4n) & 7 of the 8 bytes {y, x}, x lowest
+inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {
+  const uint64_t v = ((uint64_t)y << 32) | x;
+  unsigned r = 0;
+  for (int n = 0; n < 4; ++n) r |= (unsigned)((v >> (8 * ((s >> (4 * n)) & 7))) & 0xff) << (8 * n);
+  return r;
 }
 
 struct EmuBarrier {

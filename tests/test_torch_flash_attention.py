@@ -180,7 +180,8 @@ def test_kernels_match_plain_versions_on_card():
     f32, causal and ragged), then the bf16 tensor-core kernels' tile and
     layout edges (L around the 64-row tiles, D of 40, 64 and 128, a D=36
     padded copy, Lq != Lk, q/k/v as views of one [B, L, 3, H, D] tensor);
-    counts one launch per kernel call, and dK/dV gives the same bits twice."""
+    counts one launch per kernel call, and dK/dV and dQ give the same bits
+    twice."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
     cases = [(torch.float32, 1e-4, (2, 200, 3, 64), 200, True, False),
@@ -225,3 +226,4 @@ def test_kernels_match_plain_versions_on_card():
         }
         again = fa.flash_bwd_dkv(q, k, v, do, lse_r, delta, causal, s)
         assert all(torch.equal(a, b) for a, b in zip(again, got[2:4]))
+        assert torch.equal(fa.flash_bwd_dq(q, k, v, do, lse_r, delta, causal, s), got[4])

@@ -8,7 +8,7 @@ tensor-core kernels' own index arithmetic -- fragment addressing, masks,
 the double-buffered pipeline, the layout preconditions -- runs here, on the
 tile and layout edges chip_smoke.py holds them to on the card, through the
 same C entries and the wrapper's layout step (`_tc_layout`). The f32 FMA
-kernels and the dQ kernel ride along.
+kernels ride along.
 
 The emulated mma sums its 16 products in order in f32, not as the tensor
 cores do, so this is a check of the kernels' logic, not of their rounding;
@@ -45,15 +45,19 @@ CASES = {
     "L129-D36-padded-copy": (1, 129, 129, 1, 36, True, False, "bfloat16"),
     "L65-D64-qkv-views": (2, 65, 65, 1, 64, True, True, "bfloat16"),
     "L65-D40-f32": (1, 65, 65, 1, 40, True, False, "float32"),
+    # Lk off dQ's 64-key tile: a ragged last key tile
+    "L97-D64-causal": (1, 97, 97, 2, 64, True, False, "bfloat16"),
+    "Lq65-Lk97-D48": (1, 65, 97, 1, 48, False, False, "bfloat16"),
 }
 TOL = {"bfloat16": 1e-2, "float32": 1e-4}  # atol and rtol
 OUTPUTS = ("out", "lse", "dk", "dv", "dq")
 
 
-def build_library(out_dir: Path) -> Path:
-    """g++ build of csrc/flash_fwd.cu and flash_bwd.cu with the PTX block of
-    tc_common.cuh replaced by the emulated primitives and every
-    ``<<<grid, threads, smem, stream>>>`` launch by ``emu_launch``."""
+def build_library(out_dir: Path, names=("flash_fwd", "flash_bwd")) -> Path:
+    """g++ build of the csrc/ sources ``names`` (flash_fwd.cu and
+    flash_bwd.cu by default) with the PTX block of tc_common.cuh replaced by
+    the emulated primitives and every ``<<<grid, threads, smem, stream>>>``
+    launch by ``emu_launch``."""
     for src in CSRC.glob("*.cuh"):
         text = src.read_text()
         if src.name == "tc_common.cuh":
@@ -63,12 +67,12 @@ def build_library(out_dir: Path) -> Path:
             assert n == 1, "tc_common.cuh lost its PTX block markers"
         (out_dir / src.name).write_text(text)
     sources = []
-    for name in ("flash_fwd", "flash_bwd"):
-        text = re.sub(r"(\w+(?:<[^<>]*>)?)<<<([^>]*)>>>\(", r"emu_launch(\1, \2, ",
+    for name in names:
+        text = re.sub(r"((?:\w+::)*\w+(?:<[^<>]*>)?)<<<([^>]*)>>>\(", r"::emu_launch(\1, \2, ",
                       (CSRC / f"{name}.cu").read_text())
         (out_dir / f"{name}.cpp").write_text(text)
         sources.append(str(out_dir / f"{name}.cpp"))
-    lib = out_dir / "libflash_emu.so"
+    lib = out_dir / f"lib{'_'.join(names)}_emu.so"
     subprocess.run(
         ["g++", "-std=c++17", "-O1", "-shared", "-fPIC", "-pthread", "-Wno-unknown-pragmas",
          f"-I{out_dir}", f"-I{EMU}", "-o", str(lib), *sources],
@@ -81,7 +85,7 @@ def run_cases(lib_path: str) -> dict:
     """Each case through the emulated kernels, launched as the wrappers in
     pygrid_tpu_torch.parallel.flash_attention launch them, against the plain
     versions: {case: {output: [max abs err, elements outside tolerance]}}
-    and whether dK/dV gave the same bits twice."""
+    and whether dK/dV and dQ each gave the same bits twice."""
     import ctypes
 
     import numpy as np
@@ -137,14 +141,17 @@ def run_cases(lib_path: str) -> dict:
                 B, H, Lq, Lk, Dp, *fa._strides(qp), *fa._strides(dop), *fa._strides(kp),
                 *fa._strides(vp), *tail), "pgt_flash_bwd_dkv")
             dkv.append((dk, dv))
-        dq = nan(Lq, D)
-        build.check(lib.pgt_flash_bwd_dq(
-            q.data_ptr(), do.data_ptr(), lse_r.data_ptr(), delta.data_ptr(),
-            k.data_ptr(), v.data_ptr(), dq.data_ptr(),
-            B, H, Lq, Lk, D, *fa._strides(q), *fa._strides(do), *fa._strides(k),
-            *fa._strides(v), *tail), "pgt_flash_bwd_dq")
+        dqs = []
+        for _ in range(2):
+            dq = nan(Lq, Dp)
+            build.check(lib.pgt_flash_bwd_dq(
+                qp.data_ptr(), dop.data_ptr(), lse_r.data_ptr(), delta.data_ptr(),
+                kp.data_ptr(), vp.data_ptr(), dq.data_ptr(),
+                B, H, Lq, Lk, Dp, *fa._strides(qp), *fa._strides(dop), *fa._strides(kp),
+                *fa._strides(vp), *tail), "pgt_flash_bwd_dq")
+            dqs.append(dq)
 
-        got = (out[..., :D], lse, dkv[0][0][..., :D], dkv[0][1][..., :D], dq)
+        got = (out[..., :D], lse, dkv[0][0][..., :D], dkv[0][1][..., :D], dqs[0][..., :D])
         want = (out_r, lse_r, dk_r, dv_r, dq_r)
         tol = TOL[dt]
         errs = {}
@@ -153,6 +160,7 @@ def run_cases(lib_path: str) -> dict:
             bad = ~torch.isfinite(a) | ((a - b).abs() > tol + tol * b.abs())
             errs[name] = [float((a - b).abs().max()), int(bad.sum())]
         errs["dkv_same_bits"] = all(torch.equal(x, y) for x, y in zip(dkv[0], dkv[1]))
+        errs["dq_same_bits"] = torch.equal(dqs[0], dqs[1])
         results[case] = errs
     return results
 
@@ -176,6 +184,13 @@ def test_emulated_kernels_match_plain_versions(emulated, case):
         max_err, n_bad = errs[name]
         assert n_bad == 0, f"{case} {name}: {n_bad} elements off, max abs err {max_err:.3e}"
     assert errs["dkv_same_bits"], f"{case}: dK/dV differ between two launches"
+
+
+def test_emulated_dq_is_bit_identical_across_launches(emulated):
+    """dQ is written once per tile from registers, with no atomics: two
+    launches on the same inputs give the same bits in every case."""
+    differ = [case for case, errs in emulated.items() if not errs["dq_same_bits"]]
+    assert not differ, f"dQ differs between two launches in {differ}"
 
 
 if __name__ == "__main__":
