@@ -14,12 +14,15 @@ and the script exits non-zero:
               aligned and ragged shapes, and in bf16 the tensor-core
               kernels' tile and layout edges (L around the 64-row tiles,
               D of 40, 64 and 128, a D=36 padded copy, Lq != Lk, q/k/v as
-              strided views of one [B, L, 3, H, D] tensor); dK/dV and dQ
+              strided views of one [B, L, 3, H, D] tensor), and head dims
+              past 128 (136, 200, 256, 512) in both dtypes; dK/dV and dQ
               must be bit-identical across two launches;
 3. timing   — each kernel's median time at the main path's shape, beside
               its bound (with its multiple of it and its TFLOP/s), its
               plain version and the PyTorch library call (SDPA, timed by
-              device time under torch.profiler);
+              device time under torch.profiler); then the wide (D > 128)
+              kernels' device time at [32, 512, 2, 256] bf16 causal beside
+              their bound and SDPA's, printed only;
 4. rounds   — the main path: fused FedAvg rounds of the federated
               transformer at full width (bench_fed_transformer's config),
               with each kernel's launches counted;
@@ -44,7 +47,13 @@ and the script exits non-zero:
 10. mlp     — the encrypted 784-392-10 MLP (affine, square, affine) at
               batch 256 through fix_prec(...).share(...): decoded against
               the float64 forward, and its shares bit-identical to a CPU
-              run given the same shares, triples and truncation pairs.
+              run given the same shares, triples and truncation pairs;
+11. wire    — the node's model-hosting path on phase rounds' params: wire-v2
+              State blobs in f32 and bf16 (sizes and host times), a
+              Warehouse on a sqlite file, zero-copy decodes, the params
+              back on the card bit for bit, 8 bf16 client diffs folded by
+              the C++ native.accum_bf16 exactly, a round from the restored
+              params, a checkpoint, the MLP's shares and a zlib frame.
 
 Then it prints the kernels line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX
@@ -97,6 +106,19 @@ TC_SMEM = {
 }
 
 
+# the wide (D > 128) tensor-core kernels at n 128-wide chunks of D, bf16
+# tiles of pitch 136: forward, n chunks of 64 Q rows and a ring of two
+# stages of 64 K rows and 64 V rows; dK/dV, n chunks each of 64 K and V rows
+# and a ring of two stages of 16 Q and 16 dO rows, plus two buffers of 16 f32
+# lse and Delta; dQ, n chunks each of 64 Q and dO rows and a ring of two
+# stages of 32 K and 32 V rows.
+TC_WIDE_SMEM = {
+    "flash_fwd": lambda n: 2 * (64 * n + 4 * 64) * 136,
+    "flash_bwd_dkv": lambda n: 2 * (2 * 64 * n + 4 * 16) * 136 + 4 * 4 * 16,
+    "flash_bwd_dq": lambda n: 2 * (2 * 64 * n + 4 * 32) * 136,
+}
+
+
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
@@ -131,12 +153,16 @@ def phase_build() -> None:
                 print(f"[build] {name}: {line.strip()}")
             if "Compiling entry" in line:
                 entry = line
-            elif "spill stores" in line and entry is not None and "_tc_kernel" in entry:
+            elif "spill stores" in line and entry is not None and (
+                    "_tc_kernel" in entry or "_tc_wide_kernel" in entry):
                 check(line.split()[4] == "0" and line.split()[8] == "0",
                       f"a tensor-core kernel spills registers: {entry.strip()}: {line.strip()}")
     for name, smem in TC_SMEM.items():
         sizes = (", ".join(f"D<={dp} {smem(dp)} B" for dp in (48, 64, 128)) if callable(smem)
                  else f"{smem} B")
+        if name in TC_WIDE_SMEM:
+            sizes += ", " + ", ".join(f"D<={128 * n} {TC_WIDE_SMEM[name](n)} B"
+                                      for n in (2, 3, 4))
         print(f"[build] {name} tensor-core kernel, dynamic shared memory a block: {sizes}")
 
 
@@ -252,6 +278,25 @@ def phase_kernels() -> dict:
         ((2, 65, 2, 36), 65, True, True),
     ):
         compare_case(shape_q, Lk, torch.bfloat16, causal, views=views)
+    # head dims past 128: the wide kernels' D-slice axis and streamed chunks,
+    # in both dtypes, ragged L, Lq != Lk and a strided qkv view
+    for shape_q, Lk, causal, views in (
+        ((2, 129, 2, 136), 129, True, False),
+        ((1, 65, 2, 200), 127, False, False),
+        ((2, 128, 2, 256), 128, True, False),
+        ((1, 127, 2, 256), 127, True, True),
+        ((1, 512, 2, 256), 512, True, False),
+        ((1, 129, 1, 512), 129, True, False),
+        ((1, 64, 2, 512), 64, False, True),
+    ):
+        compare_case(shape_q, Lk, torch.bfloat16, causal, views=views)
+    for shape_q, Lk, causal in (
+        ((1, 129, 2, 136), 129, True),
+        ((1, 100, 2, 200), 100, True),
+        ((1, 65, 2, 256), 97, False),
+        ((1, 65, 1, 512), 65, True),
+    ):
+        compare_case(shape_q, Lk, torch.float32, causal)
     # the main path's own shape and dtype: these errors go into the JSON line
     return compare_case(MAIN_SHAPE, MAIN_SHAPE[1], torch.bfloat16, True, seed=1)
 
@@ -405,6 +450,45 @@ def phase_timing() -> dict:
     return result
 
 
+# head dims past 128 take the wide kernels; timed at the shape with the main
+# shape's q bytes: [32, 512, 2, 256] bf16, causal
+WIDE_SHAPE = (32, 512, 2, 256)
+
+
+def phase_timing_wide() -> None:
+    """The wide (D > 128) kernels' device time at WIDE_SHAPE beside their
+    bound and SDPA's device time at that shape, printed only: the kernels
+    line keeps the main shape's numbers."""
+    import torch.nn.functional as F
+
+    from pygrid_tpu_torch.parallel import flash_attention as fa
+
+    dtype, causal = torch.bfloat16, True
+    q, k, v, do = _inputs(WIDE_SHAPE, WIDE_SHAPE[1], dtype, seed=3)
+    scale = WIDE_SHAPE[-1] ** -0.5
+    out, lse = fa.flash_fwd(q, k, v, causal, scale)
+    delta = fa.softmax_delta(out, do)
+    dev = {
+        "flash_fwd": device_ms(lambda: fa.flash_fwd(q, k, v, causal, scale)),
+        "flash_bwd_dkv": device_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal,
+                                                            scale)),
+        "flash_bwd_dq": device_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal,
+                                                          scale)),
+    }
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib_fwd = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    lib_bwd = device_ms(lambda: torch.autograd.grad(o_sdpa, (qt, kt, vt), dot, retain_graph=True))
+    for name, (bound, by, flops, nbytes) in bounds(WIDE_SHAPE, dtype, causal).items():
+        lib = lib_fwd if name == "flash_fwd" else lib_bwd
+        print(f"[timing wide] {name} {WIDE_SHAPE} bf16 causal: device time {dev[name]:.4f} ms, "
+              f"bound {bound:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), "
+              f"{dev[name] / bound:.1f}x the bound, {flops / dev[name] / 1e9:.1f} TFLOP/s; "
+              + ("SDPA forward" if name == "flash_fwd" else "SDPA backward, all of dq/dk/dv")
+              + f" {lib:.4f} ms device time, kernel / library {dev[name] / lib:.2f}")
+
+
 # --------------------------------------------------------------------------
 # phases 4-6: the rounds
 # --------------------------------------------------------------------------
@@ -470,7 +554,7 @@ def _finite(*xs) -> bool:
     return all(bool(torch.isfinite(x).all()) for x in xs)
 
 
-def phase_rounds(n_rounds=3) -> dict:
+def phase_rounds(n_rounds=3):
     """The main path: ``make_fused_rounds`` over the flash transformer at
     full width, K=8 clients x B=4 sequences, bf16 compute and bf16 CE
     backward, local_steps=1, lr 0.1 (bench.py bench_fed_transformer)."""
@@ -511,7 +595,7 @@ def phase_rounds(n_rounds=3) -> dict:
     print(f"[rounds] 5 single rounds: {[round(s, 3) for s in samples]} ms, median "
           f"{med:.3f} ms/round, {K * B * cfg.max_len / med * 1e3:.1f} tokens/s")
     profile_round(lambda: one_round(params, X, y, 0.1))
-    return counts
+    return counts, final
 
 
 def profile_round(fn, top=12) -> None:
@@ -914,7 +998,7 @@ def mlp_steps(batch=256, sizes=(784, 392, 10)):
             ("matmul", (batch, d1), (d1, d2), (batch, d2)))
 
 
-def phase_encrypted_mlp() -> int:
+def phase_encrypted_mlp():
     """The encrypted 784→392→10 MLP forward at batch 256 through
     ``fix_prec(...).share("alice", "bob", "charlie", crypto_provider=...)``.
     (a) On the card with triples dealt there: the decoded output against the
@@ -923,7 +1007,7 @@ def phase_encrypted_mlp() -> int:
     triples and truncation pairs, dealt on the CPU and injected through
     ``strict_store`` providers, on the card and on the CPU: every step's
     output shares bit-identical, and 6 launches on the card. Returns the
-    launches of (a)."""
+    launches of (a) and its output (shares on the card)."""
     from pygrid_tpu_torch.smpc import AdditiveSharingTensor, CryptoProvider, CryptoStore, fix_prec
 
     plain = mlp_plaintext()
@@ -971,10 +1055,166 @@ def phase_encrypted_mlp() -> int:
           f"launches {counts_b}) and CPU ({cpu_s * 1e3:.1f} ms) output shares bit-identical "
           f"at all 3 steps; decoded max abs err vs float64 "
           f"{float(np.abs(gpu_out[-1].get() - want).max()):.4e}")
-    return counts["ring_matmul"]
+    return counts["ring_matmul"], out
 
 
 # --------------------------------------------------------------------------
+# phase 11: the wire and storage plane
+# --------------------------------------------------------------------------
+
+
+def _host_ms(fn):
+    """(result, host milliseconds) of ``fn`` after a device synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_wire(params, mlp_out) -> None:
+    """The node's model-hosting path on the main path's model at full width:
+    the params after phase rounds leave the card as wire-v2 State blobs (f32
+    and bf16), are stored in and read back from a Warehouse on a sqlite
+    file, decode zero-copy, come back onto the card bit for bit, seed a
+    round that matches one from the in-memory params, fold as bf16 client
+    diffs through native.accum_bf16 exactly, pass through a checkpoint and a
+    zlib frame unchanged; the encrypted MLP's shares cross too."""
+    import dataclasses
+    import tempfile
+    from functools import partial
+
+    from pygrid_tpu_torch import native, serde
+    from pygrid_tpu_torch.checkpoint import export_checkpoint, import_checkpoint
+    from pygrid_tpu_torch.models import transformer
+    from pygrid_tpu_torch.parallel import flash_attention as fa
+    from pygrid_tpu_torch.parallel import make_fused_rounds
+    from pygrid_tpu_torch.plans.state import serialize_model_params, unserialize_model_params
+    from pygrid_tpu_torch.storage import Database, Warehouse
+
+    check(native.BACKEND == "native", f"native backend is {native.BACKEND!r}, not the C++ one")
+    n_params = sum(p.numel() for p in params)
+    print(f"[wire] {card_line()}; {len(params)} tensors, {n_params} parameters, native backend "
+          f"{native.BACKEND}")
+
+    # 1. the card's params to wire bytes, f32 and bf16
+    _, d2h_ms = _host_ms(lambda: [p.cpu() for p in params])
+    blob32, ms32 = _host_ms(lambda: serialize_model_params(params))
+    blob16, ms16 = _host_ms(lambda: serialize_model_params(params, bf16=True))
+    print(f"[wire] device-to-host copy of the params {d2h_ms:.2f} ms; serialize_model_params "
+          f"f32 {len(blob32)} B in {ms32:.2f} ms, bf16 {len(blob16)} B in {ms16:.2f} ms "
+          f"(host time, each including its own device-to-host copy)")
+    check(len(blob16) < 0.55 * len(blob32), "bf16 blob is not about half the f32 blob")
+    check(all(serde.serialize(p) == serde.serialize(p.cpu().numpy()) for p in params[:4])
+          and serde.serialize(params[0].bfloat16()) == serde.serialize(params[0].bfloat16().cpu()),
+          "a tensor on the card does not serialize as its host copy does")
+
+    # 2. a Warehouse row each on a sqlite file, read back
+    @dataclasses.dataclass
+    class ModelBlob:
+        id: int | None = None
+        name: str = ""
+        value: bytes = b""
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wh = Warehouse(ModelBlob, Database(f"{tmp}/node.db"))
+        _, store_ms = _host_ms(lambda: [wh.register(name=n, value=b)
+                                        for n, b in (("f32", blob32), ("bf16", blob16))])
+        (back32, back16), load_ms = _host_ms(
+            lambda: [bytes(wh.first(name=n).value) for n in ("f32", "bf16")])
+    check(back32 == blob32 and back16 == blob16, "warehouse: blobs read back differ")
+    print(f"[wire] warehouse on a sqlite file: 2 rows stored in {store_ms:.2f} ms, read back "
+          f"byte-equal in {load_ms:.2f} ms")
+
+    # 3. zero-copy decodes
+    before = serde.tensor_copy_count()
+    raws, raw_ms = _host_ms(lambda: serde.state_raw_tensors(blob32))
+    state, dec_ms = _host_ms(lambda: serde.deserialize(blob32))
+    raws16 = serde.state_raw_tensors(blob16)
+    copies = serde.tensor_copy_count() - before
+    check(copies == 0, f"decode made {copies} tensor copies")
+    check(len(raws) == len(raws16) == len(params) and len(state) == len(params),
+          "decode: wrong number of tensors")
+    check(all(r.kind == "<f4" and tuple(r.shape) == tuple(p.shape) for r, p in zip(raws, params))
+          and all(r.kind == "bf16" for r in raws16), "state_raw_tensors: wrong kinds or shapes")
+    print(f"[wire] state_raw_tensors {raw_ms:.3f} ms, deserialize {dec_ms:.3f} ms, "
+          f"tensor copies {copies}")
+
+    # 4. back onto the card
+    got32, up32 = _host_ms(lambda: unserialize_model_params(blob32, device="cuda"))
+    got16, up16 = _host_ms(lambda: unserialize_model_params(blob16, device="cuda"))
+    check(all(g.is_cuda and torch.equal(g, p) for g, p in zip(got32, params)),
+          "f32 params do not come back bit-identical")
+    check(all(torch.equal(g, p.to(torch.bfloat16).float()) for g, p in zip(got16, params)),
+          "bf16 params are not bit-identical to p.to(bfloat16).float()")
+    print(f"[wire] unserialize_model_params onto the card: f32 {up32:.2f} ms, bf16 {up16:.2f} ms; "
+          f"f32 bit-identical, bf16 == p.to(bfloat16).float()")
+
+    # 5. the cycle manager's fold: K bf16 client diffs into f64 sums
+    K = 8
+    g = torch.Generator(device="cuda").manual_seed(11)
+    diffs = [[torch.randn(p.shape, generator=g, device="cuda") * 1e-2 for p in params]
+             for _ in range(K)]
+    blobs = [serialize_model_params(d, bf16=True) for d in diffs]
+
+    def fold():
+        sums = [np.zeros(p.numel(), np.float64) for p in params]
+        for b in blobs:
+            for acc, rt in zip(sums, serde.state_raw_tensors(b)):
+                native.accum_bf16(acc, rt.raw)
+        return sums
+
+    sums, fold_ms = _host_ms(fold)
+    for i, p in enumerate(params):
+        want = sum(d[i].to(torch.bfloat16).double() for d in diffs).flatten()
+        check(torch.equal(torch.from_numpy(sums[i]).to(want.device), want),
+              f"accum_bf16 sum of tensor {i} differs from the f64 sum on the card")
+    print(f"[wire] {K} bf16 client diffs ({sum(len(b) for b in blobs)} B) folded into f64 by "
+          f"native.accum_bf16 from RawTensors in {fold_ms:.2f} ms; equal to the card's f64 sum")
+
+    # 6. a round from the restored params
+    cfg, Kc, B = full_config(), 8, 4
+    _, X, y = transformer_setup(cfg, Kc, B, "cuda")
+    loss_fn = partial(transformer.loss_and_acc, cfg=cfg, attn_fn=fa.flash_attention,
+                      compute_dtype="bfloat16", ce_grad_dtype="bfloat16")
+    one_round = make_fused_rounds(loss_fn, n_rounds=1)
+    mem_a = one_round(params, X, y, 0.1)[0]
+    restored = one_round(got32, X, y, 0.1)[0]
+    same = all(torch.equal(a, b) for a, b in zip(mem_a, restored))
+    if same:
+        print("[wire] a round from the restored f32 params: update bit-identical to the round "
+              "from the in-memory params")
+    else:
+        mem_b = one_round(params, X, y, 0.1)[0]
+        spread = max(float((a - b).abs().max()) for a, b in zip(mem_a, mem_b))
+        err = max(float((a - b).abs().max()) for a, b in zip(mem_a, restored))
+        print(f"[wire] a round from the restored params differs from the in-memory round by "
+              f"{err:.3e}; two in-memory rounds differ by {spread:.3e}")
+        check(err <= spread, "the restored params' round is further off than the round's own "
+              "run-to-run difference")
+
+    # 7. checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        _, exp_ms = _host_ms(lambda: export_checkpoint(params, f"{tmp}/ckpt"))
+        ck, imp_ms = _host_ms(lambda: import_checkpoint(f"{tmp}/ckpt", device="cuda"))
+    check(all(torch.equal(a, b) for a, b in zip(ck, params)), "checkpoint: params differ")
+    print(f"[wire] export_checkpoint {exp_ms:.2f} ms, import_checkpoint {imp_ms:.2f} ms: "
+          f"bit-identical")
+
+    # 8. the encrypted MLP's shares
+    ast_blob = serde.serialize(mlp_out)
+    ast_back = serde.deserialize(ast_blob, device="cuda")
+    check(ast_back.shares.is_cuda and torch.equal(ast_back.shares, mlp_out.shares)
+          and ast_back.owners == mlp_out.owners, "AdditiveSharingTensor: shares differ")
+    print(f"[wire] the encrypted MLP's output shares {tuple(mlp_out.shares.shape)}: "
+          f"{len(ast_blob)} B, deserialized onto the card bit-identical")
+
+    # 9. a wire-v2 zlib frame
+    frame, enc_ms = _host_ms(lambda: serde.encode_frame(blob32, "zlib"))
+    body, dec_ms = _host_ms(lambda: serde.decode_frame(frame))
+    check(bytes(body) == blob32, "zlib frame: payload differs")
+    print(f"[wire] zlib frame {len(frame)} B ({len(frame) / len(blob32):.4f} of the blob), "
+          f"encoded in {enc_ms:.2f} ms, decoded unchanged in {dec_ms:.2f} ms")
 
 
 def main() -> int:
@@ -989,12 +1229,16 @@ def main() -> int:
     phase_build()
     errs = phase_kernels()
     timing = phase_timing()
-    launches = phase_rounds()
+    phase_timing_wide()
+    launches, params = phase_rounds()
     phase_small()
     phase_parity()
     errs["ring_matmul"] = phase_ring_kernel()
     timing["ring_matmul"] = phase_ring_timing()
-    launches["ring_matmul"] = phase_smpc_rounds() + phase_encrypted_mlp()
+    smpc_launches = phase_smpc_rounds()
+    mlp_launches, mlp_out = phase_encrypted_mlp()
+    launches["ring_matmul"] = smpc_launches + mlp_launches
+    phase_wire(params, mlp_out)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -76,8 +76,11 @@
 
 namespace pgt {
 
-// grid (ceil(Lk / TILE), B*H): one block per (b*h, 64-key tile), looping
-// over the query tiles; dK and dV stay in registers for the whole loop.
+// grid (ceil(Lk / TILE), B*H, n_chunks(D)): one block per (64-key tile,
+// b*h, DC-wide slice of the output columns), looping over the query tiles;
+// dK and dV stay in registers for the whole loop. Where D > DC, the
+// contractions stream K, V, Q and dO through shared memory chunk by chunk,
+// the block's own slice last, so that the products read it where it lies.
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ dout,
                      const float* __restrict__ lse, const float* __restrict__ delta,
@@ -86,7 +89,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ dout
                      int D, int q_sb, int q_sl, int q_sh, int o_sb, int o_sl, int o_sh, int k_sb,
                      int k_sl, int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal) {
   extern __shared__ float smem[];
-  const int pitch = pitch_of(D);
+  const int pitch = pitch_of(imin(D, DC));
   float* sK = smem;                    // [TILE][pitch]
   float* sV = sK + TILE * pitch;       // [TILE][pitch]
   float* sQ = sV + TILE * pitch;       // [TILE][pitch]
@@ -101,6 +104,10 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ dout
   const int h = bh - b * H;
   const int kt = blockIdx.x;
   const int k0 = kt * TILE;
+  const int n_c = n_chunks(D);
+  const int z = blockIdx.z;
+  const int d0 = z * DC;  // this block's output columns [d0, d0 + dw)
+  const int dw = imin(DC, D - d0);
   const float* qb = q + (long long)b * q_sb + (long long)h * q_sh;
   const float* ob = dout + (long long)b * o_sb + (long long)h * o_sh;
   const float* kb = k + (long long)b * k_sb + (long long)h * k_sh;
@@ -111,8 +118,10 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ dout
   const int tx = threadIdx.x & 15;  // query columns tx + 16 j / head dims
   const int ty = threadIdx.x >> 4;  // key rows 4 ty + i
 
-  load_tile(sK, pitch, kb, k_sl, k0, Lk, D);
-  load_tile(sV, pitch, vb, v_sl, k0, Lk, D);
+  if (n_c == 1) {
+    load_tile(sK, pitch, kb, k_sl, k0, Lk, D);
+    load_tile(sV, pitch, vb, v_sl, k0, Lk, D);
+  }
 
   float acc_dk[4][JD], acc_dv[4][JD];
 #pragma unroll
@@ -126,38 +135,47 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ dout
   const int q_first = causal ? kt : 0;
   for (int qt = q_first; qt < n_q; ++qt) {
     const int q0 = qt * TILE;
-    __syncthreads();  // the previous step is done with sQ, sO, sP and sS
-    load_tile(sQ, pitch, qb, q_sl, q0, Lq, D);
-    load_tile(sO, pitch, ob, o_sl, q0, Lq, D);
-    load_rows(sLse, lse_b, q0, Lq);
-    load_rows(sDelta, delta_b, q0, Lq);
-    __syncthreads();
-
     // S^T = K Q^T and dP^T = V dO^T for keys 4ty+i, queries tx+16j
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float ka[4], va[4], qa[4], oa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ka[i] = sK[(4 * ty + i) * pitch + d];
-        va[i] = sV[(4 * ty + i) * pitch + d];
+    for (int i_c = 0; i_c < n_c; ++i_c) {
+      const int c0 = ((z + 1 + i_c) % n_c) * DC;  // chunk z comes last
+      const int dc = imin(DC, D - c0);
+      __syncthreads();  // the previous step is done with the tiles
+      if (n_c > 1) {
+        load_tile(sK, pitch, kb + c0, k_sl, k0, Lk, dc);
+        load_tile(sV, pitch, vb + c0, v_sl, k0, Lk, dc);
       }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qa[j] = sQ[(tx + 16 * j) * pitch + d];
-        oa[j] = sO[(tx + 16 * j) * pitch + d];
+      load_tile(sQ, pitch, qb + c0, q_sl, q0, Lq, dc);
+      load_tile(sO, pitch, ob + c0, o_sl, q0, Lq, dc);
+      if (i_c == n_c - 1) {
+        load_rows(sLse, lse_b, q0, Lq);
+        load_rows(sDelta, delta_b, q0, Lq);
       }
+      __syncthreads();
+      for (int d = 0; d < dc; ++d) {
+        float ka[4], va[4], qa[4], oa[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          ka[i] = sK[(4 * ty + i) * pitch + d];
+          va[i] = sV[(4 * ty + i) * pitch + d];
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(ka[i], qa[j], s[i][j]);
-          dp[i][j] = fmaf(va[i], oa[j], dp[i][j]);
+          qa[j] = sQ[(tx + 16 * j) * pitch + d];
+          oa[j] = sO[(tx + 16 * j) * pitch + d];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(ka[i], qa[j], s[i][j]);
+            dp[i][j] = fmaf(va[i], oa[j], dp[i][j]);
+          }
+      }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -178,7 +196,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ dout
     }
     __syncthreads();
 
-    // dV += P^T dO, dK += dS^T Q
+    // dV += P^T dO, dK += dS^T Q (sQ and sO hold the block's slice)
     for (int qq = 0; qq < TILE; ++qq) {
       float p[4], ds[4], ov[JD], qv[JD];
 #pragma unroll
@@ -189,8 +207,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ dout
 #pragma unroll
       for (int j = 0; j < JD; ++j) {
         const int c = tx + 16 * j;
-        ov[j] = c < D ? sO[qq * pitch + c] : 0.f;
-        qv[j] = c < D ? sQ[qq * pitch + c] : 0.f;
+        ov[j] = c < dw ? sO[qq * pitch + c] : 0.f;
+        qv[j] = c < dw ? sQ[qq * pitch + c] : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -206,11 +224,11 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ dout
   for (int i = 0; i < 4; ++i) {
     const int kpos = k0 + 4 * ty + i;
     if (kpos >= Lk) continue;
-    const long long row = (((long long)b * Lk + kpos) * H + h) * D;
+    const long long row = (((long long)b * Lk + kpos) * H + h) * D + d0;
 #pragma unroll
     for (int j = 0; j < JD; ++j) {
       const int c = tx + 16 * j;
-      if (c < D) {
+      if (c < dw) {
         dk[row + c] = acc_dk[i][j];
         dv[row + c] = acc_dv[i][j];
       }
@@ -218,8 +236,10 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ dout
   }
 }
 
-// grid (ceil(Lq / TILE), B*H): one block per (b*h, 64-query tile), looping
-// over the key tiles; dQ stays in registers for the whole loop.
+// grid (ceil(Lq / TILE), B*H, n_chunks(D)): one block per (64-query tile,
+// b*h, DC-wide slice of the output columns), looping over the key tiles;
+// dQ stays in registers for the whole loop. Where D > DC, Q, dO, K and V
+// stream chunk by chunk, the block's own slice last.
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
@@ -228,7 +248,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ dout,
                     int q_sh, int o_sb, int o_sl, int o_sh, int k_sb, int k_sl, int k_sh,
                     int v_sb, int v_sl, int v_sh, float scale, int causal) {
   extern __shared__ float smem[];
-  const int pitch = pitch_of(D);
+  const int pitch = pitch_of(imin(D, DC));
   float* sQ = smem;                    // [TILE][pitch]
   float* sO = sQ + TILE * pitch;       // [TILE][pitch] dO
   float* sK = sO + TILE * pitch;       // [TILE][pitch]
@@ -242,6 +262,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ dout,
   const int h = bh - b * H;
   const int qt = blockIdx.x;
   const int q0 = qt * TILE;
+  const int n_c = n_chunks(D);
+  const int z = blockIdx.z;
+  const int d0 = z * DC;  // this block's output columns [d0, d0 + dw)
+  const int dw = imin(DC, D - d0);
   const float* qb = q + (long long)b * q_sb + (long long)h * q_sh;
   const float* ob = dout + (long long)b * o_sb + (long long)h * o_sh;
   const float* kb = k + (long long)b * k_sb + (long long)h * k_sh;
@@ -250,8 +274,10 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ dout,
   const int tx = threadIdx.x & 15;  // key columns tx + 16 j / head dims
   const int ty = threadIdx.x >> 4;  // query rows 4 ty + i
 
-  load_tile(sQ, pitch, qb, q_sl, q0, Lq, D);
-  load_tile(sO, pitch, ob, o_sl, q0, Lq, D);
+  if (n_c == 1) {
+    load_tile(sQ, pitch, qb, q_sl, q0, Lq, D);
+    load_tile(sO, pitch, ob, o_sl, q0, Lq, D);
+  }
   load_rows(sLse, lse + (long long)bh * Lq, q0, Lq);
   load_rows(sDelta, delta + (long long)bh * Lq, q0, Lq);
 
@@ -265,36 +291,43 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ dout,
   if (causal && n_k > qt + 1) n_k = qt + 1;  // same skip as the forward
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * TILE;
-    __syncthreads();  // the previous step is done with sK, sV and sS
-    load_tile(sK, pitch, kb, k_sl, k0, Lk, D);
-    load_tile(sV, pitch, vb, v_sl, k0, Lk, D);
-    __syncthreads();
-
     // S = Q K^T and dP = dO V^T for queries 4ty+i, keys tx+16j
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qa[4], oa[4], ka[4], va[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qa[i] = sQ[(4 * ty + i) * pitch + d];
-        oa[i] = sO[(4 * ty + i) * pitch + d];
+    for (int i_c = 0; i_c < n_c; ++i_c) {
+      const int c0 = ((z + 1 + i_c) % n_c) * DC;  // chunk z comes last
+      const int dc = imin(DC, D - c0);
+      __syncthreads();  // the previous step is done with the tiles
+      if (n_c > 1) {
+        load_tile(sQ, pitch, qb + c0, q_sl, q0, Lq, dc);
+        load_tile(sO, pitch, ob + c0, o_sl, q0, Lq, dc);
       }
+      load_tile(sK, pitch, kb + c0, k_sl, k0, Lk, dc);
+      load_tile(sV, pitch, vb + c0, v_sl, k0, Lk, dc);
+      __syncthreads();
+      for (int d = 0; d < dc; ++d) {
+        float qa[4], oa[4], ka[4], va[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ka[j] = sK[(tx + 16 * j) * pitch + d];
-        va[j] = sV[(tx + 16 * j) * pitch + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i) {
+          qa[i] = sQ[(4 * ty + i) * pitch + d];
+          oa[i] = sO[(4 * ty + i) * pitch + d];
+        }
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
-          dp[i][j] = fmaf(oa[i], va[j], dp[i][j]);
+          ka[j] = sK[(tx + 16 * j) * pitch + d];
+          va[j] = sV[(tx + 16 * j) * pitch + d];
         }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
+            dp[i][j] = fmaf(oa[i], va[j], dp[i][j]);
+          }
+      }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -311,7 +344,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ dout,
     }
     __syncthreads();
 
-    // dQ += dS K
+    // dQ += dS K (sK holds the block's slice)
     for (int kk = 0; kk < TILE; ++kk) {
       float ds[4], kv[JD];
 #pragma unroll
@@ -319,7 +352,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ dout,
 #pragma unroll
       for (int j = 0; j < JD; ++j) {
         const int c = tx + 16 * j;
-        kv[j] = c < D ? sK[kk * pitch + c] : 0.f;
+        kv[j] = c < dw ? sK[kk * pitch + c] : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -332,11 +365,11 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ dout,
   for (int i = 0; i < 4; ++i) {
     const int qpos = q0 + 4 * ty + i;
     if (qpos >= Lq) continue;
-    float* row = dq + (((long long)b * Lq + qpos) * H + h) * D;
+    float* row = dq + (((long long)b * Lq + qpos) * H + h) * D + d0;
 #pragma unroll
     for (int j = 0; j < JD; ++j) {
       const int c = tx + 16 * j;
-      if (c < D) row[c] = acc[i][j];
+      if (c < dw) row[c] = acc[i][j];
     }
   }
 }
@@ -346,11 +379,12 @@ int launch_dkv(const void* q, const void* dout, const void* lse, const void* del
                int D, int q_sb, int q_sl, int q_sh, int o_sb, int o_sl, int o_sh, int k_sb,
                int k_sl, int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal,
                cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (4 * TILE * pitch_of(D) + 2 * TILE * SPITCH + 2 * TILE);
+  const size_t smem =
+      sizeof(float) * (4 * TILE * pitch_of(imin(D, DC)) + 2 * TILE * SPITCH + 2 * TILE);
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Lk + TILE - 1) / TILE, B * H);
+  const dim3 grid((Lk + TILE - 1) / TILE, B * H, n_chunks(D));
   flash_bwd_dkv_kernel<<<grid, THREADS, smem, stream>>>(
       (const float*)q, (const float*)dout, (const float*)lse, (const float*)delta,
       (const float*)k, (const float*)v, (float*)dk, (float*)dv, H, Lq, Lk, D, q_sb, q_sl, q_sh,
@@ -363,11 +397,12 @@ int launch_dq(const void* q, const void* dout, const void* lse, const void* delt
               int q_sb, int q_sl, int q_sh, int o_sb, int o_sl, int o_sh, int k_sb, int k_sl,
               int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal,
               cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (4 * TILE * pitch_of(D) + TILE * SPITCH + 2 * TILE);
+  const size_t smem =
+      sizeof(float) * (4 * TILE * pitch_of(imin(D, DC)) + TILE * SPITCH + 2 * TILE);
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Lq + TILE - 1) / TILE, B * H);
+  const dim3 grid((Lq + TILE - 1) / TILE, B * H, n_chunks(D));
   flash_bwd_dq_kernel<<<grid, THREADS, smem, stream>>>(
       (const float*)q, (const float*)dout, (const float*)lse, (const float*)delta,
       (const float*)k, (const float*)v, (float*)dq, H, Lq, Lk, D, q_sb, q_sl, q_sh, o_sb, o_sl,
@@ -764,14 +799,429 @@ int launch_dq_tc(const void* q, const void* dout, const void* lse, const void* d
   return (int)cudaGetLastError();
 }
 
+// ---- bf16, D > 128: tensor cores with a D-slice grid axis -------------------
+//
+// The two kernels above for head dims DC < D <= MAX_D. The grid gains a
+// slice axis: each block owns DC = 128 output columns [d0, d0 + DC) and
+// keeps, for them, the f32 accumulators of a D = 128 block (dK and dV; dQ).
+// The contractions that need the full D (S = Q K^T and dP = dO V^T) stream
+// D in DC-wide chunks: the block's own operands stay in shared memory as
+// n_chunks(D) chunks, the other side's tiles pass through a double-buffered
+// ring one chunk per stage, and the chunks are taken in the order that puts
+// the block's own slice last, so the gradient product reads that slice from
+// the ring slot where it already lies. S and dP are recomputed in every
+// slice (2x the QK^T and dO V^T work at D = 256). The streamed tiles are
+// narrower than at D = 128 (16 queries for dK/dV, 32 keys for dQ), which
+// keeps S and dP at 16 and 32 registers a thread beside the accumulators:
+// ptxas gives the kernels 216 and 177 registers and no spills (254 and 255
+// at D = 128). Shared memory at D = 512: 153 KB (dK/dV) and 170 KB (dQ),
+// one block an SM.
+
+constexpr int TCW_BQ = 16;  // queries per ring stage of the wide dK/dV kernel
+constexpr int TCW_BK = 32;  // keys per ring stage of the wide dQ kernel
+
+__global__ void __launch_bounds__(TC_THREADS)
+flash_bwd_dkv_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                             const __nv_bfloat16* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             const __nv_bfloat16* __restrict__ k,
+                             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ dk,
+                             __nv_bfloat16* __restrict__ dv, int H, int Lq, int Lk, int D,
+                             int q_sb, int q_sl, int q_sh, int o_sb, int o_sl, int o_sh,
+                             int k_sb, int k_sl, int k_sh, int v_sb, int v_sl, int v_sh,
+                             float scale, int causal) {
+  using namespace tc;
+  constexpr int P = DC + PAD;
+  constexpr int BQ = TCW_BQ;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n_c = n_chunks(D);
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [n_c][BK][P], then dK
+  __nv_bfloat16* sV = sK + n_c * TC_BK * P;                          // [n_c][BK][P], then dV
+  __nv_bfloat16* sR = sV + n_c * TC_BK * P;  // ring [2][Q chunk, dO chunk][BQ][P]
+  float* sLse = reinterpret_cast<float*>(sR + 2 * 2 * BQ * P);  // [2][BQ]
+  float* sDelta = sLse + 2 * BQ;                                 // [2][BQ]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.y * TC_BK;
+  const int z = blockIdx.z;
+  const int d0 = z * DC;
+  const __nv_bfloat16* qb = q + (long long)b * q_sb + (long long)h * q_sh;
+  const __nv_bfloat16* ob = dout + (long long)b * o_sb + (long long)h * o_sh;
+  const __nv_bfloat16* kb = k + (long long)b * k_sb + (long long)h * k_sh;
+  const __nv_bfloat16* vb = v + (long long)b * v_sb + (long long)h * v_sh;
+  const float* lse_b = lse + (long long)bh * Lq;
+  const float* delta_b = delta + (long long)bh * Lq;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // keys
+  const int t = lane & 3;   // queries
+  const int wrow = warp * 16;
+
+  const int n_q = (Lq + BQ - 1) / BQ;
+  const int q_first = causal ? k0 / BQ : 0;
+  const int n_st = (n_q - q_first) * n_c;  // stage st: query tile q_first + st / n_c
+
+  // stage st's Q and dO chunk (and, for the last chunk, lse and Delta) into
+  // ring slot st & 1; chunk i of a query tile is chunk (z + 1 + i) % n_c
+  auto issue = [&](int st) {
+    const int i = st % n_c;
+    const int q0 = (q_first + st / n_c) * BQ;
+    const int c0 = ((z + 1 + i) % n_c) * DC;
+    const int buf = st & 1;
+    __nv_bfloat16* dst = sR + buf * 2 * BQ * P;
+    load_tile_async<BQ, DC, TC_THREADS>(dst, qb + c0, q_sl, q0, Lq, D - c0);
+    load_tile_async<BQ, DC, TC_THREADS>(dst + BQ * P, ob + c0, o_sl, q0, Lq, D - c0);
+    if (i == n_c - 1) {
+      for (int r = threadIdx.x; r < 2 * BQ; r += TC_THREADS) {
+        const int rr = r % BQ;
+        const bool in = q0 + rr < Lq;
+        const float* src = r < BQ ? lse_b : delta_b;
+        cp_async_4((r < BQ ? sLse : sDelta) + buf * BQ + rr, in ? src + q0 + rr : src, in);
+      }
+    }
+  };
+  for (int c = 0; c < n_c; ++c) {
+    load_tile_async<TC_BK, DC, TC_THREADS>(sK + c * TC_BK * P, kb + c * DC, k_sl, k0, Lk,
+                                           D - c * DC);
+    load_tile_async<TC_BK, DC, TC_THREADS>(sV + c * TC_BK * P, vb + c * DC, v_sl, k0, Lk,
+                                           D - c * DC);
+  }
+  if (n_st > 0) issue(0);
+  cp_async_commit();
+
+  const float sl2 = scale * 1.4426950408889634f;
+  float acc_dk[DC / 8][4], acc_dv[DC / 8][4];
+#pragma unroll
+  for (int n = 0; n < DC / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_dk[n][e] = acc_dv[n][e] = 0.f;
+  float s[BQ / 8][4], dp[BQ / 8][4];
+
+  for (int st = 0; st < n_st; ++st) {
+    const int i = st % n_c;
+    const int c = (z + 1 + i) % n_c;
+    const int buf = st & 1;
+    if (st + 1 < n_st) {
+      issue(st + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // stage st (and at st = 0, K and V) has landed
+    const __nv_bfloat16* Qt = sR + buf * 2 * BQ * P;
+    const __nv_bfloat16* Ot = Qt + BQ * P;
+    const __nv_bfloat16* Kc = sK + c * TC_BK * P;
+    const __nv_bfloat16* Vc = sV + c * TC_BK * P;
+
+    if (i == 0) {
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    }
+    // S^T += K_c Q_c^T and dP^T += V_c dO_c^T
+#pragma unroll
+    for (int ks = 0; ks < DC / 16; ++ks) {
+      uint32_t ka[4], va[4];
+      ldmatrix_x4(ka, Kc + (wrow + (lane & 15)) * P + ks * 16 + (lane >> 4) * 8);
+      ldmatrix_x4(va, Vc + (wrow + (lane & 15)) * P + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < BQ / 16; ++np) {
+        const int off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * P + ks * 16 +
+                        ((lane >> 3) & 1) * 8;
+        uint32_t qf[4], of[4];
+        ldmatrix_x4(qf, Qt + off);
+        ldmatrix_x4(of, Ot + off);
+        mma_bf16(s[2 * np], ka, qf[0], qf[1]);
+        mma_bf16(s[2 * np + 1], ka, qf[2], qf[3]);
+        mma_bf16(dp[2 * np], va, of[0], of[1]);
+        mma_bf16(dp[2 * np + 1], va, of[2], of[3]);
+      }
+    }
+
+    if (i == n_c - 1) {  // S^T and dP^T are complete; the slot holds slice z
+      const float* Lt = sLse + buf * BQ;
+      const float* Dt = sDelta + buf * BQ;
+      const int q0 = (q_first + st / n_c) * BQ;
+      const bool need_mask = (causal && q0 < k0 + TC_BK - 1) || q0 + BQ > Lq || k0 + TC_BK > Lk;
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = 8 * j + 2 * t + (e & 1);
+          float p = exp2f(fminf(s[j][e] * sl2 - Lt[qc] * 1.4426950408889634f, 0.f));
+          if (need_mask) {
+            const int qpos = q0 + qc;
+            const int kpos = k0 + wrow + g + (e >> 1) * 8;
+            if (qpos >= Lq || kpos >= Lk || (causal && qpos < kpos)) p = 0.f;
+          }
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - Dt[qc]) * scale;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk) {
+        const uint32_t pa[4] = {
+            pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        const uint32_t da[4] = {
+            pack_bf16(dp[2 * kk][0], dp[2 * kk][1]), pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+            pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+            pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+        for (int np = 0; np < DC / 16; ++np) {
+          const int off = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + np * 16 +
+                          (lane >> 4) * 8;
+          uint32_t of[4], qf[4];
+          ldmatrix_x4_trans(of, Ot + off);
+          ldmatrix_x4_trans(qf, Qt + off);
+          mma_bf16(acc_dv[2 * np], pa, of[0], of[1]);
+          mma_bf16(acc_dv[2 * np + 1], pa, of[2], of[3]);
+          mma_bf16(acc_dk[2 * np], da, qf[0], qf[1]);
+          mma_bf16(acc_dk[2 * np + 1], da, qf[2], qf[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with ring slot `buf` before it is refilled
+  }
+
+  // stage dK and dV as bf16 over the first K and V chunks, store them coalesced
+  cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < DC / 8; ++n) {
+    const int col = n * 8 + 2 * t;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = wrow + g + 8 * hh;
+      *reinterpret_cast<uint32_t*>(sK + row * P + col) =
+          pack_bf16(acc_dk[n][2 * hh], acc_dk[n][2 * hh + 1]);
+      *reinterpret_cast<uint32_t*>(sV + row * P + col) =
+          pack_bf16(acc_dv[n][2 * hh], acc_dv[n][2 * hh + 1]);
+    }
+  }
+  __syncthreads();
+  const long long out0 = ((long long)b * Lk * H + h) * D + d0;
+  store_tile<TC_BK, DC, TC_THREADS>(dk + out0, (long long)H * D, sK, k0, Lk, D - d0);
+  store_tile<TC_BK, DC, TC_THREADS>(dv + out0, (long long)H * D, sV, k0, Lk, D - d0);
+}
+
+int launch_dkv_tc_wide(const void* q, const void* dout, const void* lse, const void* delta,
+                       const void* k, const void* v, void* dk, void* dv, int B, int H, int Lq,
+                       int Lk, int D, int q_sb, int q_sl, int q_sh, int o_sb, int o_sl, int o_sh,
+                       int k_sb, int k_sl, int k_sh, int v_sb, int v_sl, int v_sh, float scale,
+                       int causal, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(__nv_bfloat16) * (2 * n_chunks(D) * TC_BK + 4 * TCW_BQ) * (DC + tc::PAD) +
+      sizeof(float) * 4 * TCW_BQ;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tc_wide_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (Lk + TC_BK - 1) / TC_BK, n_chunks(D));
+  flash_bwd_dkv_tc_wide_kernel<<<grid, TC_THREADS, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)dout, (const float*)lse,
+      (const float*)delta, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, H, Lq, Lk, D, q_sb, q_sl, q_sh, o_sb, o_sl, o_sh,
+      k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+__global__ void __launch_bounds__(TC_THREADS)
+flash_bwd_dq_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                            const __nv_bfloat16* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            const __nv_bfloat16* __restrict__ k,
+                            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ dq,
+                            int H, int Lq, int Lk, int D, int q_sb, int q_sl, int q_sh,
+                            int o_sb, int o_sl, int o_sh, int k_sb, int k_sl, int k_sh,
+                            int v_sb, int v_sl, int v_sh, float scale, int causal) {
+  using namespace tc;
+  constexpr int P = DC + PAD;
+  constexpr int BQ = TC_DQ_BQ, BK = TCW_BK;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n_c = n_chunks(D);
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [n_c][BQ][P], then dQ
+  __nv_bfloat16* sO = sQ + n_c * BQ * P;                             // [n_c][BQ][P] dO
+  __nv_bfloat16* sR = sO + n_c * BQ * P;  // ring [2][K chunk, V chunk][BK][P]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
+  const int q0 = qt * BQ;
+  const int z = blockIdx.z;
+  const int d0 = z * DC;
+  const __nv_bfloat16* qb = q + (long long)b * q_sb + (long long)h * q_sh;
+  const __nv_bfloat16* ob = dout + (long long)b * o_sb + (long long)h * o_sh;
+  const __nv_bfloat16* kb = k + (long long)b * k_sb + (long long)h * k_sh;
+  const __nv_bfloat16* vb = v + (long long)b * v_sb + (long long)h * v_sh;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;  // queries
+  const int t = lane & 3;   // keys
+  const int wrow = warp * 16;
+
+  int n_k = (Lk + BK - 1) / BK;
+  if (causal && n_k > (q0 + BQ - 1) / BK + 1) n_k = (q0 + BQ - 1) / BK + 1;
+  const int n_st = n_k * n_c;  // stage st: key tile st / n_c
+
+  // stage st's K and V chunk into ring slot st & 1; chunk i of a key tile
+  // is chunk (z + 1 + i) % n_c
+  auto issue = [&](int st) {
+    const int k0 = (st / n_c) * BK;
+    const int c0 = ((z + 1 + st % n_c) % n_c) * DC;
+    __nv_bfloat16* dst = sR + (st & 1) * 2 * BK * P;
+    load_tile_async<BK, DC, TC_THREADS>(dst, kb + c0, k_sl, k0, Lk, D - c0);
+    load_tile_async<BK, DC, TC_THREADS>(dst + BK * P, vb + c0, v_sl, k0, Lk, D - c0);
+  };
+  for (int c = 0; c < n_c; ++c) {
+    load_tile_async<BQ, DC, TC_THREADS>(sQ + c * BQ * P, qb + c * DC, q_sl, q0, Lq, D - c * DC);
+    load_tile_async<BQ, DC, TC_THREADS>(sO + c * BQ * P, ob + c * DC, o_sl, q0, Lq, D - c * DC);
+  }
+  issue(0);
+  cp_async_commit();
+
+  const float sl2 = scale * 1.4426950408889634f;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int qpos = q0 + wrow + g + 8 * hh;
+    const bool in = qpos < Lq;
+    lse2[hh] = in ? lse[(long long)bh * Lq + qpos] * 1.4426950408889634f : 0.f;
+    dlt[hh] = in ? delta[(long long)bh * Lq + qpos] : 0.f;
+  }
+
+  float acc[DC / 8][4];
+#pragma unroll
+  for (int n = 0; n < DC / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float s[BK / 8][4], dp[BK / 8][4];
+
+  for (int st = 0; st < n_st; ++st) {
+    const int i = st % n_c;
+    const int c = (z + 1 + i) % n_c;
+    if (st + 1 < n_st) {
+      issue(st + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // stage st (and at st = 0, Q and dO) has landed
+    const __nv_bfloat16* Kt = sR + (st & 1) * 2 * BK * P;
+    const __nv_bfloat16* Vt = Kt + BK * P;
+    const __nv_bfloat16* Qc = sQ + c * BQ * P;
+    const __nv_bfloat16* Oc = sO + c * BQ * P;
+
+    if (i == 0) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+    }
+    // S += Q_c K_c^T and dP += dO_c V_c^T
+#pragma unroll
+    for (int ks = 0; ks < DC / 16; ++ks) {
+      uint32_t qf[4], of[4];
+      ldmatrix_x4(qf, Qc + (wrow + (lane & 15)) * P + ks * 16 + (lane >> 4) * 8);
+      ldmatrix_x4(of, Oc + (wrow + (lane & 15)) * P + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        const int off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * P + ks * 16 +
+                        ((lane >> 3) & 1) * 8;
+        uint32_t kf[4], vf[4];
+        ldmatrix_x4(kf, Kt + off);
+        ldmatrix_x4(vf, Vt + off);
+        mma_bf16(s[2 * np], qf, kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qf, kf[2], kf[3]);
+        mma_bf16(dp[2 * np], of, vf[0], vf[1]);
+        mma_bf16(dp[2 * np + 1], of, vf[2], vf[3]);
+      }
+    }
+
+    if (i == n_c - 1) {  // S and dP are complete; the slot holds K's slice z
+      const int k0 = (st / n_c) * BK;
+      const bool need_mask = (causal && k0 + BK - 1 > q0) || q0 + BQ > Lq || k0 + BK > Lk;
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e >> 1;
+          float p = exp2f(fminf(s[j][e] * sl2 - lse2[hh], 0.f));
+          if (need_mask) {
+            const int qpos = q0 + wrow + g + 8 * hh;
+            const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+            if (qpos >= Lq || kpos >= Lk || (causal && qpos < kpos)) p = 0.f;
+          }
+          dp[j][e] = p * (dp[j][e] - dlt[hh]) * scale;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint32_t da[4] = {
+            pack_bf16(dp[2 * kk][0], dp[2 * kk][1]), pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
+            pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
+            pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+#pragma unroll
+        for (int np = 0; np < DC / 16; ++np) {
+          uint32_t kf[4];
+          ldmatrix_x4_trans(kf, Kt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
+                                    np * 16 + (lane >> 4) * 8);
+          mma_bf16(acc[2 * np], da, kf[0], kf[1]);
+          mma_bf16(acc[2 * np + 1], da, kf[2], kf[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with ring slot st & 1 before it is refilled
+  }
+
+  // stage dQ as bf16 over Q's first chunk, store it coalesced
+#pragma unroll
+  for (int n = 0; n < DC / 8; ++n) {
+    const int col = n * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(sQ + (wrow + g) * P + col) = pack_bf16(acc[n][0], acc[n][1]);
+    *reinterpret_cast<uint32_t*>(sQ + (wrow + g + 8) * P + col) =
+        pack_bf16(acc[n][2], acc[n][3]);
+  }
+  __syncthreads();
+  store_tile<BQ, DC, TC_THREADS>(dq + ((long long)b * Lq * H + h) * D + d0, (long long)H * D,
+                                 sQ, q0, Lq, D - d0);
+}
+
+int launch_dq_tc_wide(const void* q, const void* dout, const void* lse, const void* delta,
+                      const void* k, const void* v, void* dq, int B, int H, int Lq, int Lk, int D,
+                      int q_sb, int q_sl, int q_sh, int o_sb, int o_sl, int o_sh, int k_sb,
+                      int k_sl, int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal,
+                      cudaStream_t stream) {
+  const size_t smem =
+      sizeof(__nv_bfloat16) * (2 * n_chunks(D) * TC_DQ_BQ + 4 * TCW_BK) * (DC + tc::PAD);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tc_wide_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (Lq + TC_DQ_BQ - 1) / TC_DQ_BQ, n_chunks(D));
+  flash_bwd_dq_tc_wide_kernel<<<grid, TC_THREADS, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)dout, (const float*)lse,
+      (const float*)delta, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (__nv_bfloat16*)dq,
+      H, Lq, Lk, D, q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale,
+      causal);
+  return (int)cudaGetLastError();
+}
+
 inline bool bad_shape(int B, int H, int Lq, int Lk, int D) {
   return D < 1 || D > MAX_D || Lq < 1 || Lk < 1 || B * H < 1 || B * H > 65535;
 }
 
 }  // namespace pgt
 
-// dk, dv: contiguous [B, Lk, H, D] in the input dtype. lse, delta: contiguous
-// f32 [B*H, Lq]. bf16 runs on the tensor cores and needs D % 8 == 0, strides
+// dk, dv: contiguous [B, Lk, H, D] in the input dtype, 1 <= D <= MAX_D.
+// lse, delta: contiguous f32 [B*H, Lq]. bf16 runs on the tensor cores and needs D % 8 == 0, strides
 // that are multiples of 8 elements and 16-byte-aligned q, dO, k, v (the
 // wrapper makes a padded copy where a view is not so). Returns the
 // cudaError_t of the launch (0 = launched).
@@ -788,6 +1238,10 @@ extern "C" int pgt_flash_bwd_dkv(const void* q, const void* dout, const void* ls
     if (!layout_ok(q, D, q_sb, q_sl, q_sh) || !layout_ok(dout, D, o_sb, o_sl, o_sh) ||
         !layout_ok(k, D, k_sb, k_sl, k_sh) || !layout_ok(v, D, v_sb, v_sl, v_sh))
       return (int)cudaErrorInvalidValue;
+    if (D > pgt::DC)
+      return pgt::launch_dkv_tc_wide(q, dout, lse, delta, k, v, dk, dv, B, H, Lq, Lk, D, q_sb,
+                                     q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb, v_sl,
+                                     v_sh, scale, causal, s);
     switch (pgt::tc::padded_d(D)) {
       case 48:
         return pgt::launch_dkv_tc<48>(q, dout, lse, delta, k, v, dk, dv, B, H, Lq, Lk, D, q_sb,
@@ -823,6 +1277,10 @@ extern "C" int pgt_flash_bwd_dq(const void* q, const void* dout, const void* lse
     if (!layout_ok(q, D, q_sb, q_sl, q_sh) || !layout_ok(dout, D, o_sb, o_sl, o_sh) ||
         !layout_ok(k, D, k_sb, k_sl, k_sh) || !layout_ok(v, D, v_sb, v_sl, v_sh))
       return (int)cudaErrorInvalidValue;
+    if (D > pgt::DC)
+      return pgt::launch_dq_tc_wide(q, dout, lse, delta, k, v, dq, B, H, Lq, Lk, D, q_sb, q_sl,
+                                    q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh,
+                                    scale, causal, s);
     switch (pgt::tc::padded_d(D)) {
       case 48:
         return pgt::launch_dq_tc<48>(q, dout, lse, delta, k, v, dq, B, H, Lq, Lk, D, q_sb, q_sl,

@@ -16,6 +16,11 @@
 // memory -- except that the
 // tensor-core kernels' 16-byte copies need D and the strides in multiples
 // of 8 elements, and the wrapper pads a view that does not meet that.
+//
+// Head dims wider than DC = 128 columns (up to MAX_D = 512) run with a
+// D-slice grid axis: each block owns DC output columns and keeps the
+// accumulators of a D <= 128 block for them, while the full-D contractions
+// (S = Q K^T, dP = dO V^T) stream D in DC-wide chunks through shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,13 +29,19 @@
 namespace pgt {
 
 constexpr int TILE = 64;       // query rows and key rows per tile
-constexpr int MAX_D = 128;     // widest head dim a thread's registers hold
+constexpr int DC = 128;        // head-dim columns a block owns; contraction chunk width
+constexpr int MAX_D = 512;     // widest head dim: the wide kernels' shared memory
 constexpr int THREADS = 256;   // 16 x 16 threads, 4 x 4 outputs each
-constexpr int JD = MAX_D / 16; // head-dim columns per thread
+constexpr int JD = DC / 16;    // head-dim columns per thread
 constexpr int SPITCH = TILE + 1;  // row pitch of a [TILE, TILE] score tile
 constexpr float NEG = -1e30f;  // finite "-inf" of the running max
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+__host__ __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
+
+// DC-wide chunks (and output slices) of a head dim D
+__host__ __device__ __forceinline__ int n_chunks(int D) { return (D + DC - 1) / DC; }
 
 // Row pitch of a [TILE, D] tile in shared memory: the +1 puts neighbouring
 // rows in neighbouring banks for the column-wise reads of the products.

@@ -47,6 +47,10 @@
 
 namespace pgt {
 
+// grid (ceil(Lq / TILE), B*H, n_chunks(D)): one block per (64-query tile,
+// b*h, DC-wide slice of the output columns). Where D > DC, Q and K stream
+// through shared memory in DC-wide chunks for the scores, and V's slice
+// rides with the last chunk.
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
@@ -54,7 +58,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  int q_sh, int k_sb, int k_sl, int k_sh, int v_sb, int v_sl, int v_sh,
                  float scale, int causal) {
   extern __shared__ float smem[];
-  const int pitch = pitch_of(D);
+  const int pitch = pitch_of(imin(D, DC));
   float* sQ = smem;                    // [TILE][pitch]
   float* sK = sQ + TILE * pitch;       // [TILE][pitch]
   float* sV = sK + TILE * pitch;       // [TILE][pitch]
@@ -68,6 +72,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int h = bh - b * H;
   const int qt = blockIdx.x;
   const int q0 = qt * TILE;
+  const int n_c = n_chunks(D);
+  const int d0 = blockIdx.z * DC;  // this block's output columns [d0, d0 + dv)
+  const int dv = imin(DC, D - d0);
   const float* qb = q + (long long)b * q_sb + (long long)h * q_sh;
   const float* kb = k + (long long)b * k_sb + (long long)h * k_sh;
   const float* vb = v + (long long)b * v_sb + (long long)h * v_sh;
@@ -77,7 +84,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int srow = threadIdx.x >> 2;  // softmax: 4 threads per row
   const int sl4 = threadIdx.x & 3;
 
-  load_tile(sQ, pitch, qb, q_sl, q0, Lq, D);
+  if (n_c == 1) load_tile(sQ, pitch, qb, q_sl, q0, Lq, D);
 
   float m_run = NEG;  // running max and sum of row `srow`
   float l_run = 0.f;
@@ -94,27 +101,31 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int kt = 0; kt < n_k; ++kt) {
     const int k0 = kt * TILE;
-    __syncthreads();  // the previous step is done with sK, sV and sP
-    load_tile(sK, pitch, kb, k_sl, k0, Lk, D);
-    load_tile(sV, pitch, vb, v_sl, k0, Lk, D);
-    __syncthreads();
-
-    // scores S = Q K^T * scale for rows 4ty+i, keys tx+16j
+    // scores S = Q K^T * scale for rows 4ty+i, keys tx+16j, chunk by chunk
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float a[4], bk[4];
+    for (int c = 0; c < n_c; ++c) {
+      const int c0 = c * DC;
+      const int dc = imin(DC, D - c0);
+      __syncthreads();  // the previous step is done with sQ, sK, sV and sP
+      if (n_c > 1) load_tile(sQ, pitch, qb + c0, q_sl, q0, Lq, dc);
+      load_tile(sK, pitch, kb + c0, k_sl, k0, Lk, dc);
+      if (c == n_c - 1) load_tile(sV, pitch, vb + d0, v_sl, k0, Lk, dv);
+      __syncthreads();
+      for (int d = 0; d < dc; ++d) {
+        float a[4], bk[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sQ[(4 * ty + i) * pitch + d];
+        for (int i = 0; i < 4; ++i) a[i] = sQ[(4 * ty + i) * pitch + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = sK[(tx + 16 * j) * pitch + d];
+        for (int j = 0; j < 4; ++j) bk[j] = sK[(tx + 16 * j) * pitch + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bk[j], s[i][j]);
+      }
     }
     // masked lanes hold -inf: they never raise the max above its finite
     // start NEG, and exp(-inf - m) is exactly 0, so a row with every lane
@@ -169,7 +180,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < JD; ++j) {
         const int c = tx + 16 * j;
-        vv[j] = c < D ? sV[kk * pitch + c] : 0.f;
+        vv[j] = c < dv ? sV[kk * pitch + c] : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -191,16 +202,18 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qpos = q0 + r;
     if (qpos >= Lq) continue;
     const float inv = 1.f / fmaxf(sL[r], 1e-30f);
-    float* orow = out + (((long long)b * Lq + qpos) * H + h) * D;
+    float* orow = out + (((long long)b * Lq + qpos) * H + h) * D + d0;
 #pragma unroll
     for (int j = 0; j < JD; ++j) {
       const int c = tx + 16 * j;
-      if (c < D) orow[c] = acc[i][j] * inv;
+      if (c < dv) orow[c] = acc[i][j] * inv;
     }
   }
-  for (int r = threadIdx.x; r < TILE; r += THREADS) {
-    const int qpos = q0 + r;
-    if (qpos < Lq) lse[(long long)bh * Lq + qpos] = sM[r] + logf(fmaxf(sL[r], 1e-30f));
+  if (blockIdx.z == 0) {
+    for (int r = threadIdx.x; r < TILE; r += THREADS) {
+      const int qpos = q0 + r;
+      if (qpos < Lq) lse[(long long)bh * Lq + qpos] = sM[r] + logf(fmaxf(sL[r], 1e-30f));
+    }
   }
 }
 
@@ -208,11 +221,12 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse
                int Lq, int Lk, int D, int q_sb, int q_sl, int q_sh, int k_sb, int k_sl,
                int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal,
                cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (3 * TILE * pitch_of(D) + TILE * SPITCH + 3 * TILE);
+  const size_t smem =
+      sizeof(float) * (3 * TILE * pitch_of(imin(D, DC)) + TILE * SPITCH + 3 * TILE);
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Lq + TILE - 1) / TILE, B * H);
+  const dim3 grid((Lq + TILE - 1) / TILE, B * H, n_chunks(D));
   flash_fwd_kernel<<<grid, THREADS, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, (float*)lse, H, Lq, Lk, D,
       q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal);
@@ -431,13 +445,234 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, void* out, void* 
   return (int)cudaGetLastError();
 }
 
+// ---- bf16, D > 128: tensor cores with a D-slice grid axis -------------------
+//
+// flash_fwd_tc_wide_kernel: the tensor-core forward above for head dims
+// DC < D <= MAX_D. The grid gains a slice axis: each block owns DC = 128
+// output columns [d0, d0 + DC) and keeps, for them, the O accumulators of
+// the D = 128 kernel. The scores need the full D, so the 64-query Q tile
+// stays in shared memory as n_chunks(D) DC-wide chunks (loaded once, 17 KB
+// each), K streams through a double-buffered ring chunk by chunk, and V's
+// slice rides with K's last chunk; Q's A fragments are re-read by ldmatrix
+// for every chunk, as the dQ kernel re-reads Q. Every slice recomputes S,
+// so the QK^T work grows with the number of slices (2x at D = 256); slice 0
+// writes lse. Shared memory: 17 KB per Q chunk plus 68 KB of ring, 136 KB
+// at D = 512. Without Q's fragments in registers ptxas gives it 176
+// registers and no spills (the D = 128 kernel: 236).
+
+__global__ void __launch_bounds__(TC_THREADS)
+flash_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
+                         float* __restrict__ lse, int H, int Lq, int Lk, int D, int q_sb,
+                         int q_sl, int q_sh, int k_sb, int k_sl, int k_sh, int v_sb, int v_sl,
+                         int v_sh, float scale, int causal) {
+  using namespace tc;
+  constexpr int P = DC + PAD;  // row pitch of every shared tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int n_c = n_chunks(D);
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [n_c][BM][P], then O
+  __nv_bfloat16* sR = sQ + n_c * TC_BM * P;  // ring [2][K chunk, V slice][BN][P]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
+  const int q0 = qt * TC_BM;
+  const int d0 = blockIdx.z * DC;  // this block's output columns
+  const __nv_bfloat16* qb = q + (long long)b * q_sb + (long long)h * q_sh;
+  const __nv_bfloat16* kb = k + (long long)b * k_sb + (long long)h * k_sh;
+  const __nv_bfloat16* vb = v + (long long)b * v_sb + (long long)h * v_sh;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wrow = warp * 16;
+
+  int n_k = (Lk + TC_BN - 1) / TC_BN;
+  if (causal && n_k > qt + 1) n_k = qt + 1;
+  const int n_st = n_k * n_c;  // stage st: K tile st / n_c, chunk st % n_c
+
+  // stage st's K chunk (and, for the last chunk, V's slice) into ring slot st & 1
+  auto issue = [&](int st) {
+    const int kt = st / n_c, c = st - (st / n_c) * n_c;
+    __nv_bfloat16* dst = sR + (st & 1) * 2 * TC_BN * P;
+    load_tile_async<TC_BN, DC, TC_THREADS>(dst, kb + c * DC, k_sl, kt * TC_BN, Lk, D - c * DC);
+    if (c == n_c - 1)
+      load_tile_async<TC_BN, DC, TC_THREADS>(dst + TC_BN * P, vb + d0, v_sl, kt * TC_BN, Lk,
+                                             D - d0);
+  };
+  for (int c = 0; c < n_c; ++c)
+    load_tile_async<TC_BM, DC, TC_THREADS>(sQ + c * TC_BM * P, qb + c * DC, q_sl, q0, Lq,
+                                           D - c * DC);
+  issue(0);
+  cp_async_commit();
+
+  const float sl2 = scale * 1.4426950408889634f;
+  float o[DC / 8][4];
+#pragma unroll
+  for (int n = 0; n < DC / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
+  float m_run[2] = {NEG, NEG};
+  float l_run[2] = {0.f, 0.f};
+  float s[TC_BN / 8][4];
+
+  for (int st = 0; st < n_st; ++st) {
+    const int kt = st / n_c, c = st - kt * n_c;
+    if (st + 1 < n_st) {  // the next stage's copy runs under this stage's math
+      issue(st + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // stage st (and at st = 0, Q) is in shared memory
+    const __nv_bfloat16* Kt = sR + (st & 1) * 2 * TC_BN * P;
+    const __nv_bfloat16* Qc = sQ + c * TC_BM * P;
+
+    if (c == 0) {
+#pragma unroll
+      for (int j = 0; j < TC_BN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    }
+    // S += Q_c K_c^T
+#pragma unroll
+    for (int ks = 0; ks < DC / 16; ++ks) {
+      uint32_t qf[4];
+      ldmatrix_x4(qf, Qc + (wrow + (lane & 15)) * P + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < TC_BN / 16; ++np) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, Kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * P + ks * 16 +
+                            ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * np], qf, kf[0], kf[1]);
+        mma_bf16(s[2 * np + 1], qf, kf[2], kf[3]);
+      }
+    }
+
+    if (c == n_c - 1) {  // S is complete: mask, online softmax, O += P V
+      const __nv_bfloat16* Vt = Kt + TC_BN * P;
+      const int k0 = kt * TC_BN;
+      const bool need_mask = (causal && kt == qt) || k0 + TC_BN > Lk;
+#pragma unroll
+      for (int j = 0; j < TC_BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * sl2;
+          if (need_mask) {
+            const int kpos = k0 + 8 * j + 2 * t + (e & 1);
+            const int qpos = q0 + wrow + g + (e >> 1) * 8;
+            if (kpos >= Lk || (causal && qpos < kpos)) x = neg_inf();
+          }
+          s[j][e] = x;
+        }
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = NEG;
+#pragma unroll
+        for (int j = 0; j < TC_BN / 8; ++j)
+          mx = fmaxf(mx, fmaxf(s[j][2 * hh], s[j][2 * hh + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[hh], mx);
+        const float alpha = exp2f(m_run[hh] - m_new);
+        m_run[hh] = m_new;
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < TC_BN / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = exp2f(s[j][2 * hh + e] - m_new);
+            s[j][2 * hh + e] = p;
+            sum += p;
+          }
+        }
+        l_run[hh] = l_run[hh] * alpha + sum;
+#pragma unroll
+        for (int n = 0; n < DC / 8; ++n) {
+          o[n][2 * hh] *= alpha;
+          o[n][2 * hh + 1] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < TC_BN / 16; ++kk) {
+        const uint32_t pa[4] = {
+            pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int np = 0; np < DC / 16; ++np) {
+          uint32_t vf[4];
+          ldmatrix_x4_trans(vf, Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
+                                    np * 16 + (lane >> 4) * 8);
+          mma_bf16(o[2 * np], pa, vf[0], vf[1]);
+          mma_bf16(o[2 * np + 1], pa, vf[2], vf[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with ring slot st & 1 before it is refilled
+  }
+
+  // normalise, stage O as bf16 over Q's first chunk, store it coalesced
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float l = l_run[hh];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    l_run[hh] = fmaxf(l, 1e-30f);
+  }
+  const float inv0 = 1.f / l_run[0];
+  const float inv1 = 1.f / l_run[1];
+#pragma unroll
+  for (int n = 0; n < DC / 8; ++n) {
+    const int col = n * 8 + 2 * t;
+    *reinterpret_cast<uint32_t*>(sQ + (wrow + g) * P + col) =
+        pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
+    *reinterpret_cast<uint32_t*>(sQ + (wrow + g + 8) * P + col) =
+        pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
+  }
+  if (t == 0 && blockIdx.z == 0) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int qpos = q0 + wrow + g + 8 * hh;
+      if (qpos < Lq)
+        lse[(long long)bh * Lq + qpos] = m_run[hh] * 0.6931471805599453f + logf(l_run[hh]);
+    }
+  }
+  __syncthreads();
+  store_tile<TC_BM, DC, TC_THREADS>(out + ((long long)b * Lq * H + h) * D + d0, (long long)H * D,
+                                    sQ, q0, Lq, D - d0);
+}
+
+int launch_fwd_tc_wide(const void* q, const void* k, const void* v, void* out, void* lse, int B,
+                       int H, int Lq, int Lk, int D, int q_sb, int q_sl, int q_sh, int k_sb,
+                       int k_sl, int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal,
+                       cudaStream_t stream) {
+  const size_t smem =
+      sizeof(__nv_bfloat16) * (n_chunks(D) * TC_BM + 4 * TC_BN) * (DC + tc::PAD);
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_wide_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * H, (Lq + TC_BM - 1) / TC_BM, n_chunks(D));
+  flash_fwd_tc_wide_kernel<<<grid, TC_THREADS, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (__nv_bfloat16*)out, (float*)lse, H, Lq, Lk, D, q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb,
+      v_sl, v_sh, scale, causal);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace pgt
 
 // out: contiguous [B, Lq, H, D] in the input dtype; lse: contiguous f32
-// [B*H, Lq]. bf16 runs on the tensor cores and needs D % 8 == 0, strides
-// that are multiples of 8 elements and 16-byte-aligned q, k, v (the wrapper
-// makes a padded copy where a view is not so). Returns the cudaError_t of
-// the launch (0 = launched).
+// [B*H, Lq]; 1 <= D <= MAX_D. bf16 runs on the tensor cores and needs
+// D % 8 == 0, strides that are multiples of 8 elements and 16-byte-aligned
+// q, k, v (the wrapper makes a padded copy where a view is not so); D > DC
+// takes the wide kernel. Returns the cudaError_t of the launch (0 =
+// launched).
 extern "C" int pgt_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                              int B, int H, int Lq, int Lk, int D, int q_sb, int q_sl, int q_sh,
                              int k_sb, int k_sl, int k_sh, int v_sb, int v_sl, int v_sh,
@@ -449,6 +684,9 @@ extern "C" int pgt_flash_fwd(const void* q, const void* k, const void* v, void* 
     if (!pgt::tc::layout_ok(q, D, q_sb, q_sl, q_sh) || !pgt::tc::layout_ok(k, D, k_sb, k_sl, k_sh) ||
         !pgt::tc::layout_ok(v, D, v_sb, v_sl, v_sh))
       return (int)cudaErrorInvalidValue;
+    if (D > pgt::DC)
+      return pgt::launch_fwd_tc_wide(q, k, v, out, lse, B, H, Lq, Lk, D, q_sb, q_sl, q_sh, k_sb,
+                                     k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal, s);
     switch (pgt::tc::padded_d(D)) {
       case 48:
         return pgt::launch_fwd_tc<48>(q, k, v, out, lse, B, H, Lq, Lk, D, q_sb, q_sl, q_sh, k_sb,

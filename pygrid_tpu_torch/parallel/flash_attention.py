@@ -20,7 +20,10 @@ the tensor cores and copy 16-byte chunks: where a view's head
 dim or strides are not multiples of 8 elements, or its base is not 16-byte
 aligned, the wrapper hands them a zero-padded contiguous copy
 (:func:`_tc_layout`, the counterpart of the reference's ``_pad_to``) and
-slices the outputs; the main path's q, k, v need none.
+slices the outputs; the main path's q, k, v need none. Head dims past 128
+(up to :data:`MAX_D`) run through the same three C entries, which launch
+the wide kernels: a grid axis over 128-wide slices of the output columns,
+with the full-D products streamed through shared memory in chunks.
 """
 
 from __future__ import annotations
@@ -35,8 +38,10 @@ fwd_launches = 0
 bwd_dkv_launches = 0
 bwd_dq_launches = 0
 
-#: widest head dim the kernels hold in registers (csrc/flash_common.cuh)
-MAX_D = 128
+#: widest head dim the CUDA kernels take (csrc/flash_common.cuh): past
+#: 128 they split D into 128-wide slices, and at 512 the wide dQ kernel's
+#: resident Q and dO chunks fill 170 KB of a block's shared memory
+MAX_D = 512
 
 _NEG = -1e30
 
@@ -154,7 +159,7 @@ def _check_cuda(*xs: torch.Tensor) -> None:
             raise ValueError("flash kernels index with 32-bit strides")
     D = xs[0].shape[-1]
     if D > MAX_D:
-        raise ValueError(f"the CUDA flash kernels take D <= {MAX_D}, got {D}")
+        raise ValueError(f"the CUDA flash kernels take head dims up to D = {MAX_D}, got {D}")
 
 
 def _contig_last(x: torch.Tensor) -> torch.Tensor:
@@ -299,7 +304,8 @@ def flash_attention(
 ) -> torch.Tensor:
     """Fused attention, [B, L, H, D] (the layout :func:`attention` uses).
 
-    Any (Lq, Lk) and, on the CPU, any D; the CUDA kernels take D ≤ 128.
+    Any (Lq, Lk) and, on the CPU, any D; the CUDA kernels take D ≤ 512
+    (past 128 in 128-wide slices of the output columns).
     ``causal`` requires Lq == Lk (self-attention alignment). The default
     scale is D^-0.5. The output comes back in the input dtype.
     Differentiable through the dK/dV and dQ kernels."""

@@ -8,9 +8,12 @@ shares as one int64 ring tensor whose leading axis is the party axis, on
 one device; every protocol step is a few tensor ops (and ring-matmul
 launches) over that stacked tensor.
 
+The class is registered with the port's serde as
+``pygrid.AdditiveSharingTensor``, as the reference's is, and
 ``_bufferize``/``_unbufferize`` keep the reference's numpy dict (shares as
-``Ring64``'s uint32 ``lo``/``hi``), so the reference's buffers decode here
-and a later serde port can register the class as it is.
+``Ring64``'s uint32 ``lo``/``hi``): a shared tensor serialized by either
+package decodes in the other (here onto the ``device`` that
+:func:`pygrid_tpu_torch.serde.deserialize` is given).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 
 from pygrid_tpu_torch.convert import ring_from_numpy, ring_to_numpy
 from pygrid_tpu_torch.device import resolve
+from pygrid_tpu_torch.serde import register_serde
 from pygrid_tpu_torch.smpc import ring as R
 from pygrid_tpu_torch.smpc.fixed import FixedPointEncoder
 from pygrid_tpu_torch.smpc.kernels import (
@@ -34,6 +38,7 @@ from pygrid_tpu_torch.smpc.kernels import (
 from pygrid_tpu_torch.smpc.provider import CryptoProvider
 
 
+@register_serde(name="pygrid.AdditiveSharingTensor")
 class AdditiveSharingTensor:
     """Stacked additive shares: ``shares`` is int64 ``[n_parties, *shape]``."""
 
@@ -177,7 +182,7 @@ class AdditiveSharingTensor:
         ring_c = R.to_ring(c_arr.astype(np.int64), self.shares.device)
         return self._like(R.ring_mul(self.shares, ring_c))  # broadcasts over parties
 
-    # --- buffers (the reference's serde payload) ----------------------------
+    # --- serde (the reference's payload) -------------------------------------
 
     def _bufferize(self) -> dict:
         lo, hi = ring_to_numpy(self.shares)

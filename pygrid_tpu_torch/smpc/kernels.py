@@ -53,6 +53,13 @@ def _expand_parties(t: torch.Tensor, like: torch.Tensor, dim: int) -> torch.Tens
     return t.unsqueeze(dim).expand(like.shape[: dim + 1] + t.shape[dim:])
 
 
+def _right_align(t: torch.Tensor, at: int, rank: int) -> torch.Tensor:
+    """``t`` with unit axes inserted at axis ``at`` until the axes from
+    ``at`` on number ``rank``: numpy's right alignment of a per-party shape
+    made explicit, so that broadcasting never pairs it with a leading axis."""
+    return t.reshape(t.shape[:at] + (1,) * (rank - (t.dim() - at)) + t.shape[at:])
+
+
 def beaver_combine(
     x_sh: torch.Tensor,
     y_sh: torch.Tensor,
@@ -65,8 +72,13 @@ def beaver_combine(
     """One full Beaver round on stacked shares -> product shares.
 
     z_i = c_i + d∘b_i + a_i∘e + [i=0] d∘e,  d = open(x−a), e = open(y−b).
-    ``op="mul"`` is elementwise (per-party shapes of one rank broadcast);
-    any other op is the ring matmul, as in the reference."""
+    Per party this is the reference's: ``op="mul"`` broadcasts the two
+    per-party shapes as numpy does (right-aligned), any other op is
+    :func:`~pygrid_tpu_torch.smpc.ring.ring_matmul`'s contraction."""
+    if op == "mul":
+        rank = max(x_sh.dim(), y_sh.dim()) - dim - 1
+        x_sh, y_sh, a_sh, b_sh = (_right_align(t, dim + 1, rank)
+                                  for t in (x_sh, y_sh, a_sh, b_sh))
     d = reconstruct_kernel(R.ring_sub(x_sh, a_sh), dim)
     e = reconstruct_kernel(R.ring_sub(y_sh, b_sh), dim)
     if op == "mul":
@@ -74,9 +86,9 @@ def beaver_combine(
         ae = R.ring_mul(a_sh, e.unsqueeze(dim))
         de = R.ring_mul(d, e)
     else:
-        db = R.ring_matmul(_expand_parties(d, b_sh, dim), b_sh)
-        ae = R.ring_matmul(a_sh, _expand_parties(e, a_sh, dim))
-        de = R.ring_matmul(d, e)
+        db = R.lead_matmul(_expand_parties(d, b_sh, dim), b_sh, dim + 1)
+        ae = R.lead_matmul(a_sh, _expand_parties(e, a_sh, dim), dim + 1)
+        de = R.lead_matmul(d, e, dim)
     z = R.ring_add(c_sh, R.ring_add(db, ae))
     z.select(dim, 0).add_(de)  # z is a fresh tensor: party 0 takes d∘e
     return z
@@ -132,6 +144,11 @@ def batched_beaver(
     B = x_sh.shape[0]
     a = R.ring_random(generator, (B,) + tuple(x_sh.shape[2:]))
     b = R.ring_random(generator, (B,) + tuple(y_sh.shape[2:]))
-    c = R.ring_mul(a, b) if op == "mul" else R.ring_matmul(a, b)
+    if op == "mul":  # per instance, numpy's right-aligned broadcasting
+        rank = max(a.dim(), b.dim()) - 1
+        a, b = _right_align(a, 1, rank), _right_align(b, 1, rank)
+        c = R.ring_mul(a, b)
+    else:
+        c = R.lead_matmul(a, b, 1)
     a_sh, b_sh, c_sh = (share_kernel(generator, v, n_parties, dim=1) for v in (a, b, c))
     return beaver_combine(x_sh, y_sh, a_sh, b_sh, c_sh, op, dim=1)

@@ -23,6 +23,8 @@ so uint64 arrays cross as their int64 view.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -82,10 +84,31 @@ def ring_mul_const(a: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def ring_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Exact matmul over Z_2^64, ``[..., M, K] @ [..., K, N]`` with up to
-    two equal leading batch axes: the CUDA kernel for tensors on the card,
-    its plain version on the CPU (:mod:`pygrid_tpu_torch.smpc.ring_matmul`)."""
-    return ring_matmul_kernel(a, b)
+    """Exact matmul over Z_2^64 with the reference's contraction: a's last
+    axis with b's first, ``[..., M, K] @ [K, N, ...]`` -> ``[..., M, N, ...]``
+    (1-D operands included). The CUDA kernel for tensors on the card, its
+    plain version on the CPU (:mod:`pygrid_tpu_torch.smpc.ring_matmul`)."""
+    return lead_matmul(a, b, 0)
+
+
+def lead_matmul(a: torch.Tensor, b: torch.Tensor, n_lead: int) -> torch.Tensor:
+    """:func:`ring_matmul` of each pair of slices along the first
+    ``n_lead`` (≤ 2) axes, which ``a`` and ``b`` share: ``[L..., M..., K] @
+    [L..., K, N...]`` -> ``[L..., M..., N...]``. a's M axes fold into one and
+    b's N axes into one (a view where the strides allow), so every call is
+    one launch of the batched kernel."""
+    lead = tuple(a.shape[:n_lead])
+    if a.dim() <= n_lead or b.dim() <= n_lead:
+        raise TypeError(f"ring_matmul needs operands of rank ≥ 1: "
+                        f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    K = a.shape[-1]
+    if tuple(b.shape[:n_lead]) != lead or b.shape[n_lead] != K:
+        raise TypeError(f"ring_matmul contracts a's last axis with b's first: "
+                        f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    ms, ns = tuple(a.shape[n_lead:-1]), tuple(b.shape[n_lead + 1:])
+    out = ring_matmul_kernel(a.reshape(lead + (math.prod(ms), K)),
+                             b.reshape(lead + (K, math.prod(ns))))
+    return out.reshape(lead + ms + ns)
 
 
 # --- division by a small public constant (for fixed-point truncation) -------

@@ -57,6 +57,9 @@ def _torch(xs, dtype=torch.float32):
         (1, 128, 128, 1, 40, False),
         (1, 129, 129, 1, 36, True),    # D=36: the wrapper's padded copy
         (1, 65, 129, 2, 128, False),   # Lq != Lk
+        # past D = 128 the CUDA kernels split D into 128-wide slices
+        (1, 65, 65, 2, 256, True),
+        (1, 64, 97, 1, 256, False),
     ],
 )
 def test_forward_and_lse_match_pallas(B, Lq, Lk, H, D, causal):
@@ -83,6 +86,7 @@ def test_forward_and_lse_match_pallas(B, Lq, Lk, H, D, causal):
         pytest.param(65, 65, True, 40, id="65-65-True-D40"),
         pytest.param(129, 129, True, 128, id="129-129-True-D128"),
         pytest.param(64, 127, False, 36, id="64-127-False-D36"),
+        pytest.param(65, 65, True, 256, id="65-65-True-D256"),
     ],
 )
 def test_gradients_match_pallas(Lq, Lk, causal, D):
@@ -179,7 +183,8 @@ def test_kernels_match_plain_versions_on_card():
     """Each CUDA kernel against its plain version on the card (bf16 and
     f32, causal and ragged), then the bf16 tensor-core kernels' tile and
     layout edges (L around the 64-row tiles, D of 40, 64 and 128, a D=36
-    padded copy, Lq != Lk, q/k/v as views of one [B, L, 3, H, D] tensor);
+    padded copy, Lq != Lk, q/k/v as views of one [B, L, 3, H, D] tensor),
+    and head dims past 128 (160, 256, 512) in both dtypes;
     counts one launch per kernel call, and dK/dV and dQ give the same bits
     twice."""
     if not torch.cuda.is_available():
@@ -197,6 +202,10 @@ def test_kernels_match_plain_versions_on_card():
                   ((1, 129, 2, 40), 64, False, False),
                   ((2, 127, 2, 64), 127, True, True),
                   ((2, 65, 2, 36), 65, True, True))]
+    # head dims past 128: the wide kernels, both dtypes
+    cases += [(dtype, tol, (1, L, 2, D), L, causal, False)
+              for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4))
+              for L, D, causal in ((65, 160, True), (127, 256, False), (129, 512, True))]
     for dtype, atol, (B, Lq, H, D), Lk, causal, views in cases:
         g = torch.Generator(device="cuda").manual_seed(0)
         if views:

@@ -48,6 +48,13 @@ CASES = {
     # Lk off dQ's 64-key tile: a ragged last key tile
     "L97-D64-causal": (1, 97, 97, 2, 64, True, False, "bfloat16"),
     "Lq65-Lk97-D48": (1, 65, 97, 1, 48, False, False, "bfloat16"),
+    # D past 128: the wide kernels' D-slice grid axis and streamed chunks
+    "L65-D160-causal": (1, 65, 65, 1, 160, True, False, "bfloat16"),
+    "Lq64-Lk33-D160": (1, 64, 33, 1, 160, False, False, "bfloat16"),
+    "L63-D256-causal": (1, 63, 63, 1, 256, True, False, "bfloat16"),
+    "Lq65-Lk97-D256": (1, 65, 97, 1, 256, False, False, "bfloat16"),
+    "L65-D160-f32-causal": (1, 65, 65, 1, 160, True, False, "float32"),
+    "L63-D256-f32": (1, 63, 63, 1, 256, False, False, "float32"),
 }
 TOL = {"bfloat16": 1e-2, "float32": 1e-4}  # atol and rtol
 OUTPUTS = ("out", "lse", "dk", "dv", "dq")

@@ -1,6 +1,7 @@
 """The port stands alone: pygrid_tpu_torch imports neither ``jax`` nor
-anything of ``pygrid_tpu``, and its entry points never move to the CPU
-unless asked."""
+anything of ``pygrid_tpu``, nor the packages the card's machine lacks
+(``msgpack``, ``ml_dtypes``, ``orbax``; ``websockets`` only lazily), and its
+entry points never move to the CPU unless asked."""
 
 import ast
 import os
@@ -31,9 +32,14 @@ def _modules() -> list[str]:
     ]
 
 
+#: never imported by the port: the reference, and what the card's machine lacks
+BANNED = ("jax", "jaxlib", "pygrid_tpu", "msgpack", "ml_dtypes", "orbax")
+#: imported only inside a function, where it is optional
+LAZY = ("websockets",)
+
+
 def _banned(name: str) -> bool:
-    top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "pygrid_tpu")
+    return name.split(".")[0] in BANNED
 
 
 _BLOCKED_IMPORT = textwrap.dedent(
@@ -41,17 +47,39 @@ _BLOCKED_IMPORT = textwrap.dedent(
     import importlib, importlib.abc, sys
     sys.path.insert(0, {str(ROOT)!r})
 
+    BLOCKED = {BANNED + LAZY!r}
+
     class Block(importlib.abc.MetaPathFinder):
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib", "pygrid_tpu"):
+            if name.split(".")[0] in BLOCKED:
                 raise ImportError("blocked: " + name)
             return None
 
     sys.meta_path.insert(0, Block())
     for mod in {_modules()!r} + ["chip_smoke"]:
         importlib.import_module(mod)
-    leaked = [m for m in sys.modules
-              if m.split(".")[0] in ("jax", "jaxlib", "pygrid_tpu")]
+
+    # the wire and storage plane as the card's machine runs it
+    import numpy as np, torch
+    from pygrid_tpu_torch import native, serde
+    from pygrid_tpu_torch.plans.state import serialize_model_params, unserialize_model_params
+    from pygrid_tpu_torch.storage import Database, Warehouse
+    from pygrid_tpu_torch.checkpoint import export_checkpoint, import_checkpoint
+    params = [torch.randn(3, 4), torch.randn(5).to(torch.bfloat16)]
+    for bf16 in (False, True):
+        blob = serialize_model_params(params, bf16=bf16)
+        back = unserialize_model_params(serde.decode_frame(serde.encode_frame(blob, "zlib")),
+                                        device="cpu")
+        assert torch.equal(back[1], params[1]) and back[0].shape == (3, 4)
+        assert serde.state_raw_tensors(blob)[0].shape == (3, 4)
+    assert torch.equal(back[0], params[0].to(torch.bfloat16).float())
+    obj = {{"a": [1, 2.5, "x", None, np.arange(3)], "b": b"raw"}}
+    assert serde.deserialize(serde.serialize(obj))["b"] == b"raw"
+    acc = np.zeros(4)
+    native.accum_bf16(acc, native.f32_to_bf16(np.ones(4, np.float32)))
+    assert (acc == 1).all() and native.install_ws_masking() is False
+    assert native.BACKEND in ("native", "numpy")
+    leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("ok", len({_modules()!r}))
     """
@@ -90,9 +118,11 @@ def _wait(proc):
 
 
 def test_every_module_imports_with_jax_and_pygrid_tpu_blocked(runs):
-    """A fresh interpreter with a meta-path hook refusing ``jax`` and the
-    exact top-level name ``pygrid_tpu`` (not ``pygrid_tpu_torch``) imports
-    every module of the port, and chip_smoke.py."""
+    """A fresh interpreter with a meta-path hook refusing ``jax``, the
+    exact top-level name ``pygrid_tpu`` (not ``pygrid_tpu_torch``),
+    ``msgpack``, ``ml_dtypes``, ``orbax`` and ``websockets`` imports every
+    module of the port and chip_smoke.py, and runs the port's serde, frame,
+    native and model-params round trips, as the card's machine would."""
     rc, stdout, stderr = _wait(runs["blocked_import"])
     assert rc == 0, stderr
     assert stdout.startswith("ok")
@@ -110,9 +140,15 @@ def test_no_jax_or_pygrid_tpu_import_in_source(path):
             continue
         bad = [n for n in names if _banned(n)]
         assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+    for node in tree.body:  # module level: the lazy imports must not be here
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""])
+            assert not [n for n in names if n.split(".")[0] in LAZY], \
+                f"{path.name}:{node.lineno} imports {names} at module level"
 
 
-def test_entry_points_without_device_cpu_raise_on_a_gpu_less_host():
+def test_entry_points_without_device_cpu_raise_on_a_gpu_less_host(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
     cfg = transformer.TransformerConfig(vocab=8, d_model=8, n_heads=2, n_layers=1,
@@ -127,6 +163,17 @@ def test_entry_points_without_device_cpu_raise_on_a_gpu_less_host():
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         pygrid_tpu_torch.resolve("cuda:0")
     assert pygrid_tpu_torch.resolve("cpu") == torch.device("cpu")
+    from pygrid_tpu_torch.checkpoint import export_checkpoint, import_checkpoint
+    from pygrid_tpu_torch.plans.state import serialize_model_params, unserialize_model_params
+
+    blob = serialize_model_params([torch.ones(2)])
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        unserialize_model_params(blob)
+    assert torch.equal(unserialize_model_params(blob, device="cpu")[0], torch.ones(2))
+    export_checkpoint([torch.ones(2)], tmp_path / "ckpt")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        import_checkpoint(tmp_path / "ckpt")
+    assert torch.equal(import_checkpoint(tmp_path / "ckpt", device="cpu")[0], torch.ones(2))
 
 
 def test_chip_smoke_fails_without_a_gpu_and_outside_the_repo(runs):

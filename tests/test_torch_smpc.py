@@ -135,6 +135,72 @@ def test_beaver_combine_matches_jax_bit_for_bit(op, sx, sy):
     np.testing.assert_array_equal(R.from_ring(K.reconstruct_kernel(z_p)), want)
 
 
+@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("sx,sy", [((3, 4), (4,)), ((2, 3), (3,)), ((4,), (2, 3, 4)),
+                                   ((1, 4), (3, 1))])
+def test_beaver_mul_of_two_ranks_matches_jax_bit_for_bit(n, sx, sy):
+    """``*`` of shares whose per-party shapes differ in rank broadcasts per
+    party as numpy does (the reference maps ring_mul over the party axis):
+    the same shares as the JAX package's and the exact product, also where
+    the party count equals one of x's axes (P=3 with [3,4]*[4], P=2 with
+    [2,3]*[3])."""
+    rng = np.random.default_rng(n * 100 + len(sx) * 10 + len(sy))
+    x = rng.integers(0, 2**64, size=sx, dtype=U64)
+    y = rng.integers(0, 2**64, size=sy, dtype=U64)
+    sh = [np_shares(rng, x, n), np_shares(rng, y, n)] + np_triple(rng, "mul", sx, sy, n)
+    z_j = JK.beaver_combine(*[jax_ring(s) for s in sh], "mul")
+    z_p = K.beaver_combine(*[port_ring(s) for s in sh], "mul")
+    same_bits(z_j, z_p)
+    with np.errstate(over="ignore"):
+        np.testing.assert_array_equal(R.from_ring(K.reconstruct_kernel(z_p)), x * y)
+    # the batched form over a leading instance axis gives every instance's
+    x2 = rng.integers(0, 2**64, size=(2,) + sx, dtype=U64)
+    y2 = rng.integers(0, 2**64, size=(2,) + sy, dtype=U64)
+    g = torch.Generator().manual_seed(n)
+    xs, ys = (K.share_kernel(g, port_ring(v), n, dim=1) for v in (x2, y2))
+    z2 = K.reconstruct_kernel(K.batched_beaver(g, xs, ys, "mul", n), dim=1)
+    with np.errstate(over="ignore"):
+        want = np.stack([x2[i] * y2[i] for i in range(2)])
+    np.testing.assert_array_equal(R.from_ring(z2), want)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_shared_matmul_of_two_ranks_opens_like_jax(n):
+    """AdditiveSharingTensor [2,3,4] @ [4,5] (the reference's contraction,
+    a's leading axes kept) with the triple and truncation pair injected:
+    the same shares and the same opened values as the JAX package's."""
+    rng = np.random.default_rng(40 + n)
+    owners = ("alice", "bob", "charlie", "dan")[:n]
+    x, w = rng.uniform(-2, 2, (2, 3, 4)), rng.uniform(-2, 2, (4, 5))
+    jprov, pprov = providers(strict_store=True)
+    pair = []
+    for v in (x, w):
+        sh = np_shares(rng, JR.from_ring(JEncoder().encode(v)), n)
+        pair.append((JA.AdditiveSharingTensor(jax_ring(sh), owners, JEncoder(), jprov),
+                     AdditiveSharingTensor(port_ring(sh), owners, FixedPointEncoder(), pprov)))
+    scale = FixedPointEncoder().scale
+    inject(jprov, pprov, JStore.key("matmul", (2, 3, 4), (4, 5), n),
+           np_triple_nd(rng, (2, 3, 4), (4, 5), n))
+    inject(jprov, pprov, JStore.key("trunc", (2, 3, 5), (scale,), n),
+           np_trunc_pair(rng, (2, 3, 5), scale, n))
+    zj = pair[0][0] @ pair[1][0]
+    zp = pair[0][1] @ pair[1][1]
+    assert zp.shares.shape == (n, 2, 3, 5)
+    same_bits(zj.shares, zp.shares)
+    np.testing.assert_array_equal(zp.get(), zj.get())
+    np.testing.assert_allclose(zp.get(), x @ w, atol=2e-2)
+
+
+def np_triple_nd(rng, sx, sy, n):
+    """A matmul triple with the reference's contraction (a's last axis
+    with b's first) for operands of any rank."""
+    a = rng.integers(0, 2**64, size=sx, dtype=U64)
+    b = rng.integers(0, 2**64, size=sy, dtype=U64)
+    with np.errstate(over="ignore"):
+        c = np.tensordot(a, b, axes=([a.ndim - 1], [0]))
+    return [np_shares(rng, v, n) for v in (a, b, c)]
+
+
 def test_masked_truncate_matches_jax_bit_for_bit():
     rng = np.random.default_rng(2)
     scale = 1000

@@ -158,7 +158,11 @@ def test_plain_ring_matmul_matches_pallas_interpret_and_numpy(sa, sb):
     got = R.from_ring(RM.ring_matmul_kernel(_port(a), _port(b)))
     np.testing.assert_array_equal(got, _np_matmul(a, b))
     np.testing.assert_array_equal(got, _jax_matmul(a, b))
-    np.testing.assert_array_equal(R.from_ring(R.ring_matmul(_port(a), _port(b))), got)
+    if a.ndim == 2:  # ring.ring_matmul contracts a's last axis with b's first
+        np.testing.assert_array_equal(R.from_ring(R.ring_matmul(_port(a), _port(b))), got)
+    else:
+        with pytest.raises(TypeError):
+            R.ring_matmul(_port(a), _port(b))
 
 
 def test_plain_ring_matmul_all_ones_carries_match_pallas():
@@ -189,6 +193,44 @@ def test_plain_ring_matmul_two_batch_axes_strides_and_k_chunks(monkeypatch):
     np.testing.assert_array_equal(R.from_ring(RM.ring_matmul_kernel(_port(a), bt)), want)
     monkeypatch.setattr(RM, "CHUNK_K", 3)
     np.testing.assert_array_equal(R.from_ring(RM.ring_matmul_kernel(_port(a), _port(b))), want)
+
+
+@pytest.mark.parametrize(
+    "sa,sb,want",
+    [
+        ((2, 3, 4), (4, 5), (2, 3, 5)),
+        ((3, 4), (4,), (3,)),
+        ((4,), (4, 5), (5,)),
+        ((4,), (4,), ()),
+        ((3, 4), (4, 5, 2), (3, 5, 2)),
+        ((2, 1, 3, 40), (40, 2, 3), (2, 1, 3, 2, 3)),
+    ],
+)
+def test_ring_matmul_contracts_like_the_jax_package(sa, sb, want):
+    """ring.ring_matmul is the reference's ``[..., M, K] @ [K, N, ...]``:
+    a's leading axes fold into M and b's trailing axes into N around one
+    2-D kernel call, bit for bit against ``pygrid_tpu.smpc.ring``."""
+    rng = np.random.default_rng(len(sa) * 10 + len(sb))
+    a = rng.integers(0, 2**64, size=sa, dtype=U64)
+    b = rng.integers(0, 2**64, size=sb, dtype=U64)
+    j, p = _both(JR.ring_matmul, R.ring_matmul, a, b)
+    assert p.shape == j.shape == want
+    np.testing.assert_array_equal(p, j)
+    with np.errstate(over="ignore"):
+        truth = np.tensordot(a, b, axes=([a.ndim - 1], [0]))
+    np.testing.assert_array_equal(p, truth)
+    # a strided view of a: the fold copies where it must and no more
+    at = _port(np.ascontiguousarray(np.swapaxes(a, 0, -1))).transpose(0, -1) if a.ndim > 1 else _port(a)
+    np.testing.assert_array_equal(R.from_ring(R.ring_matmul(at, _port(b))), p)
+
+
+@pytest.mark.parametrize("sa,sb", [((2, 3, 4), (2, 4, 5)), ((4, 3), (4, 3)), ((3,), (4,))])
+def test_ring_matmul_raises_where_the_jax_package_raises(sa, sb):
+    a, b = np.zeros(sa, dtype=U64), np.zeros(sb, dtype=U64)
+    with pytest.raises(TypeError):
+        JR.ring_matmul(JR.to_ring(a), JR.to_ring(b))
+    with pytest.raises(TypeError):
+        R.ring_matmul(_port(a), _port(b))
 
 
 @pytest.mark.parametrize(
