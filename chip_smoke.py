@@ -53,7 +53,17 @@ and the script exits non-zero:
               Warehouse on a sqlite file, zero-copy decodes, the params
               back on the card bit for bit, 8 bf16 client diffs folded by
               the C++ native.accum_bf16 exactly, a round from the restored
-              params, a checkpoint, the MLP's shares and a zlib frame.
+              params, a checkpoint, the MLP's shares and a zlib frame;
+12. fl      — the model-centric FL cycle: a port FLController on a sqlite
+              file hosts the committed JAX-built CNN plan ("list"), the
+              same CNN plan built by the port on the CPU ("torchscript",
+              a torch.export program) and the committed JAX-built MLP plan
+              ("list"), each for 2 cycles of 8 workers at batch 64 on the
+              card; plan outputs held against the direct training step and
+              the CPU, A against B, every checkpoint against the f64 mean
+              on the card, no cycle left open, no hand-written kernel
+              launched; host ms per protocol step, the step's device time
+              three ways and the list's op count.
 
 Then it prints the kernels line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX
@@ -1217,6 +1227,242 @@ def phase_wire(params, mlp_out) -> None:
           f"encoded in {enc_ms:.2f} ms, decoded unchanged in {dec_ms:.2f} ms")
 
 
+# --------------------------------------------------------------------------
+# phase 12: the model-centric FL cycle
+# --------------------------------------------------------------------------
+
+# the list dialect's tolerance (the tests' own, tests/test_torch_plans.py):
+# f32 with TF32 off, the op-list interpreter against the direct step, the
+# torch.export program and the same list on the CPU
+FL_TOL = (2e-4, 2e-5)
+
+
+def _fl_batch(kind, cycle, worker, device, B=64):
+    """A worker's synthetic MNIST-shaped batch, seeded by (cycle, worker):
+    X in [0, 1) (NHWC images for the CNN, flat for the MLP), one-hot y."""
+    g = torch.Generator().manual_seed(1000 * cycle + worker)
+    shape = (B, 28, 28, 1) if kind == "cnn" else (B, 784)
+    X = torch.rand(shape, generator=g)
+    y = torch.eye(10)[torch.randint(0, 10, (B,), generator=g)]
+    return X.to(device), y.to(device)
+
+
+def _fl_close(a, b) -> bool:
+    rtol, atol = FL_TOL
+    return len(a) == len(b) and all(
+        x.shape == y.shape and bool(torch.allclose(x.float().cpu(), y.float().cpu(),
+                                                   rtol=rtol, atol=atol))
+        for x, y in zip(a, b))
+
+
+def _fl_max_err(a, b) -> float:
+    return max(float((x.float().cpu() - y.float().cpu()).abs().max()) for x, y in zip(a, b))
+
+
+def phase_fl(device="cuda") -> None:
+    """The port's model-centric FL cycle on the card at full width: a port
+    FLController on a sqlite file hosts three processes — A, the committed
+    JAX-built CNN training plan (its "list" variant); B, the same CNN plan
+    built by the port from cnn.training_step on the CPU (its "torchscript"
+    variant, a torch.export program); C, the committed JAX-built 784-392-10
+    MLP plan ("list") — each for 2 cycles of 8 workers at batch 64. Every
+    worker runs its own protocol steps and trains on the card; every
+    checkpoint is held against an f64 computation on the card.
+    (``device="cpu"`` rehearses the phase on a host without one.)"""
+    import tempfile
+    from functools import partial
+    from pathlib import Path
+
+    from pygrid_tpu_torch import serde
+    from pygrid_tpu_torch.federated import FLController, tasks
+    from pygrid_tpu_torch.models import cnn, mlp
+    from pygrid_tpu_torch.plans import Plan
+    from pygrid_tpu_torch.plans.state import (
+        host_model_params,
+        serialize_model_params,
+        unserialize_model_params,
+    )
+    from pygrid_tpu_torch.plans.translators import count_ops, run_oplist
+    from pygrid_tpu_torch.storage import Database
+    from pygrid_tpu_torch.utils import exceptions as E
+    from pygrid_tpu_torch.utils import profiling
+    from pygrid_tpu_torch.utils.codes import CYCLE
+
+    B, LR, K, CYCLES = 64, 0.005, 8, 2
+    fixtures = Path(__file__).resolve().parent / "pygrid_tpu_torch" / "plans" / "fixtures"
+    cnn_params = cnn.init(torch.Generator().manual_seed(0), device=device)
+    mlp_params = mlp.init((784, 392, 10), generator=torch.Generator().manual_seed(1),
+                          device=device)
+    lr_t = torch.tensor(LR, device=device)
+
+    # B's plan: traced and exported by the port on the CPU
+    cpu_example = (torch.zeros(B, 28, 28, 1), torch.zeros(B, 10), torch.tensor(LR),
+                   *[p.cpu() for p in cnn_params])
+    torch_plan, build_ms = _host_ms(
+        lambda: Plan(name="training_plan", fn=cnn.training_step).build(*cpu_example))
+    processes = {
+        "mnist-cnn-list": ("cnn", (fixtures / "cnn_training_plan.bin").read_bytes(),
+                           cnn_params, "list"),
+        "mnist-cnn-torch": ("cnn", serde.serialize(torch_plan), cnn_params, "torchscript"),
+        "mnist-mlp-list": ("mlp", (fixtures / "mlp_training_plan.bin").read_bytes(),
+                           mlp_params, "list"),
+    }
+    print(f"[fl] {card_line()}; plans: {', '.join(f'{n} {len(v[1])} B' for n, v in processes.items())}"
+          f"; B's plan built on the CPU in {build_ms:.1f} ms (make_fx + torch.export)")
+    server_config = {"min_workers": K, "max_workers": K, "min_diffs": K, "max_diffs": K,
+                     "num_cycles": CYCLES, "cycle_length": None, "minimum_upload_speed": 0,
+                     "minimum_download_speed": 0}
+    steps = ("assign", "model", "plan", "deserialize", "train", "report")
+    host_ms = {name: {step: [] for step in steps} for name in processes}
+    direct = {"cnn": cnn.training_step, "mlp": mlp.training_step}
+    agg_before = profiling.stats.snapshot().get("cycle.aggregate", {}).get("count", 0)
+    tasks.set_sync(True)  # the K-th report aggregates before it returns
+
+    counters = _counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctl = FLController(Database(f"{tmp}/node.db"))
+        pids = {}
+        for name, (kind, blob, params, _) in processes.items():
+            pids[name] = ctl.create_process(
+                model_blob=serialize_model_params(params),
+                client_plans={"training_plan": blob}, name=name, version="1.0",
+                client_config={"name": name, "version": "1.0", "batch_size": B, "lr": LR,
+                               "max_updates": 1},
+                server_config=dict(server_config)).id
+        for name in processes:
+            for w in range(K):
+                worker = ctl.worker_manager.create(f"{name}-w{w}")
+                worker.avg_upload = worker.avg_download = 100.0
+                ctl.worker_manager.update(worker)
+        first_diffs = {}
+        for cycle in range(CYCLES):
+            for name, (kind, _, _, variant) in processes.items():
+                model = ctl.model_manager.get(fl_process_id=pids[name])
+                old = host_model_params(
+                    ctl.model_manager.load(model_id=model.id, alias="latest").value)
+                diffs = []
+                for w in range(K):
+                    t = host_ms[name]
+                    worker = ctl.worker_manager.get(id=f"{name}-w{w}")
+                    resp, ms = _host_ms(lambda: ctl.assign(name, "1.0", worker))
+                    t["assign"].append(ms)
+                    check(resp[CYCLE.STATUS] == CYCLE.ACCEPTED, f"{name}: worker {w} rejected")
+                    params, ms = _host_ms(lambda: unserialize_model_params(
+                        ctl.model_manager.load_encoded(resp["model_id"],
+                                                       precision="bf16" if w == 0 else None),
+                        device=device))
+                    t["model"].append(ms)
+                    pblob, ms = _host_ms(lambda: ctl.plan_manager.get_variant(
+                        resp[CYCLE.PLANS]["training_plan"], variant))
+                    t["plan"].append(ms)
+                    if variant == "list":
+                        oplist, ms = _host_ms(lambda: serde.deserialize(pblob))
+                        step = partial(run_oplist, oplist, device=device)
+                    else:
+                        plan, ms = _host_ms(lambda: ctl.plan_manager.deserialize_plan(pblob))
+                        step = partial(plan, device=device)
+                    t["deserialize"].append(ms)
+                    X, y = _fl_batch(kind, cycle, w, device)
+                    out, ms = _host_ms(lambda: step(X, y, lr_t, *params))
+                    t["train"].append(ms)
+                    check(_finite(*out) and 0.0 <= float(out[1]) <= 1.0,
+                          f"{name}: worker {w} output not finite or acc outside [0, 1]")
+                    if w == 0:  # the plan against the direct step and, for a list, the CPU
+                        ref = direct[kind](X, y, lr_t, *params)
+                        check(_fl_close(out, ref), f"{name}: plan differs from {kind}."
+                              f"training_step on the card by {_fl_max_err(out, ref):.3e}")
+                        msg = f"[fl] {name} cycle {cycle}: plan vs {kind}.training_step on the card " \
+                              f"{_fl_max_err(out, ref):.3e}"
+                        if variant == "list":
+                            cpu = run_oplist(oplist, X.cpu(), y.cpu(), LR,
+                                             *[p.cpu() for p in params], device="cpu")
+                            check(_fl_close(out, cpu), f"{name}: the list on the card differs "
+                                  f"from the CPU by {_fl_max_err(out, cpu):.3e}")
+                            msg += f", vs the same list on the CPU {_fl_max_err(out, cpu):.3e}"
+                        print(msg)
+
+                    def report():
+                        diff = [(p - n).cpu() for p, n in zip(params, out[2:])]
+                        ctl.submit_diff(f"{name}-w{w}", resp[CYCLE.KEY],
+                                        serialize_model_params(diff))
+                        return diff
+                    diff, ms = _host_ms(report)
+                    t["report"].append(ms)
+                    diffs.append(diff)
+                    if cycle == 0:
+                        first_diffs.setdefault(name, []).append((out, diff))
+                # the checkpoint against old params minus the f64 mean, on the card
+                new = ctl.model_manager.load(model_id=model.id, alias="latest")
+                check(new.number == cycle + 2, f"{name}: checkpoint {new.number} after cycle {cycle}")
+                got = [torch.from_numpy(np.array(a)).to(device) for a in host_model_params(new.value)]
+                exact, worst = True, 0.0
+                for i, (o, g) in enumerate(zip(old, got)):
+                    mean64 = sum(d[i].to(device).double() for d in diffs) / K
+                    o32 = torch.from_numpy(np.array(o)).to(device)
+                    want64 = o32.double() - mean64
+                    exact &= bool(torch.equal(g, o32 - mean64.float()))
+                    ulp = torch.finfo(torch.float32).eps * (o32.double().abs() + mean64.abs())
+                    err = (g.double() - want64).abs()
+                    check(bool((err <= ulp).all()), f"{name}: checkpoint tensor {i} is off the f64 "
+                          f"mean by {float(err.max()):.3e}")
+                    worst = max(worst, float((err / ulp.clamp_min(1e-45)).max()))
+                print(f"[fl] {name} cycle {cycle}: checkpoint {new.number} == old - mean of {K} "
+                      f"diffs: within f32 rounding of the f64 value on the card (worst "
+                      f"{worst:.3f} of its bound); bit-identical to old - f32(f64 mean): {exact}")
+        for name in processes:
+            try:
+                ctl.cycle_manager.last(pids[name])
+            except E.CycleNotFoundError:
+                continue
+            raise RuntimeError(f"{name}: a cycle is still open after {CYCLES} cycles")
+        torch.cuda.synchronize()
+        launches = {k: n for c in counters.values() for k, n in c.launch_counts().items()}
+    check(not any(launches.values()), f"the FL path launched hand-written kernels: {launches}")
+    # A and B on the same inputs (cycle 0: the same params and batches)
+    a_runs, b_runs = first_diffs["mnist-cnn-list"], first_diffs["mnist-cnn-torch"]
+    ab = max(max(_fl_max_err(oa, ob), _fl_max_err(da, db))
+             for (oa, da), (ob, db) in zip(a_runs, b_runs))
+    check(all(_fl_close(oa, ob) and _fl_close(da, db) for (oa, da), (ob, db) in zip(a_runs, b_runs)),
+          f"processes A and B differ on the same inputs by {ab:.3e}")
+    agg = profiling.stats.snapshot().get("cycle.aggregate", {})
+    print(f"[fl] {len(processes)} processes x {CYCLES} cycles x {K} workers done; no cycle open; "
+          f"A vs B on the same inputs (outputs and diffs) max abs {ab:.3e}; hand-written kernel "
+          f"launches on this path: {sum(launches.values())} {launches}; cycle.aggregate "
+          f"{agg.get('count', 0) - agg_before} runs, mean {agg.get('mean_s', 0) * 1e3:.3f} ms")
+    for name in processes:
+        med = {step: statistics.median(v) for step, v in host_ms[name].items()}
+        print(f"[fl] {name} host ms per protocol step, median over {K * CYCLES} workers: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in med.items()))
+    print("[fl] (a worker's train step is its plan's first call: for the torchscript variant "
+          "it includes torch.export.load of the program)")
+
+    # the plan's device time at batch 64, three ways
+    X, y = _fl_batch("cnn", 9, 0, device)
+    cnn_list = serde.deserialize(processes["mnist-cnn-list"][1]).oplist
+    exported = serde.deserialize(processes["mnist-cnn-torch"][1])
+    ways = {
+        "list-dialect interpreter": lambda: run_oplist(cnn_list, X, y, lr_t, *cnn_params,
+                                                       device=device),
+        "torch.export program": lambda: exported(X, y, lr_t, *cnn_params, device=device),
+        "direct cnn.training_step": lambda: cnn.training_step(X, y, lr_t, *cnn_params),
+    }
+    fresh = serde.deserialize(processes["mnist-cnn-torch"][1])
+    _, first_ms = _host_ms(lambda: fresh(X, y, lr_t, *cnn_params, device=device))
+    _, again_ms = _host_ms(lambda: fresh(X, y, lr_t, *cnn_params, device=device))
+    print(f"[fl] torch.export program: first call after deserialize {first_ms:.3f} ms "
+          f"(load, device rewrite, run), second call {again_ms:.3f} ms (host time)")
+    for way, fn in ways.items():
+        dms, ems = device_ms(fn), time_ms(fn, iters=10, repeats=5)
+        print(f"[fl] CNN training step at batch {B}, {way}: device {dms:.4f} ms, events "
+              f"{ems:.4f} ms per step")
+    mlp_list = serde.deserialize(processes["mnist-mlp-list"][1]).oplist
+    print(f"[fl] ops per list-dialect run: CNN {count_ops(cnn_list)}, MLP {count_ops(mlp_list)}")
+
+
+
 def main() -> int:
     check(torch.cuda.is_available(), "no CUDA GPU: chip_smoke.py runs on the card only")
     import pygrid_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
@@ -1239,6 +1485,7 @@ def main() -> int:
     mlp_launches, mlp_out = phase_encrypted_mlp()
     launches["ring_matmul"] = smpc_launches + mlp_launches
     phase_wire(params, mlp_out)
+    phase_fl()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

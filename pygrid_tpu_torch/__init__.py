@@ -9,7 +9,9 @@ anything of ``pygrid_tpu``.
 Ported so far: the federated transformer round — the transformer and MLP
 models, the FedAvg round builders (opaque and fused) and flash attention
 with its forward, dK/dV and dQ kernels — and the SMPC compute plane
-(:mod:`pygrid_tpu_torch.smpc`) with its Z_2^64 ring-matmul kernel. Entry
+(:mod:`pygrid_tpu_torch.smpc`) with its Z_2^64 ring-matmul kernel, the
+node's wire and storage plane (``serde``, ``native``, ``storage``), and the
+model-centric FL cycle (``federated``, ``plans``, ``telemetry``). Entry
 points take ``device`` and default to ``"cuda"``; without a GPU they raise
 unless the caller passes ``device="cpu"``.
 """

@@ -19,19 +19,23 @@ import numpy as np
 import torch
 
 from pygrid_tpu_torch.device import resolve
+from pygrid_tpu_torch.models import cnn as cnn_model
 from pygrid_tpu_torch.models import mlp, transformer
 
 
 def expected_shapes(
     cfg: transformer.TransformerConfig | None = None,
     mlp_sizes: Sequence[int] | None = None,
+    cnn: bool = False,
 ) -> list[tuple[int, ...]]:
-    """The flat param shapes of a transformer ``cfg`` or an MLP of
-    ``mlp_sizes`` (exactly one of the two)."""
-    if (cfg is None) == (mlp_sizes is None):
-        raise ValueError("pass exactly one of cfg (transformer) or mlp_sizes (MLP)")
+    """The flat param shapes of a transformer ``cfg``, an MLP of
+    ``mlp_sizes`` or the MNIST CNN (exactly one of the three)."""
+    if (cfg is not None) + (mlp_sizes is not None) + bool(cnn) != 1:
+        raise ValueError("pass exactly one of cfg (transformer), mlp_sizes (MLP) or cnn=True")
     if cfg is not None:
         return transformer.param_shapes(cfg)
+    if cnn:
+        return list(cnn_model.PARAM_SHAPES)
     return mlp.param_shapes(mlp_sizes)
 
 
@@ -49,11 +53,12 @@ def params_from_numpy(
     *,
     cfg: transformer.TransformerConfig | None = None,
     mlp_sizes: Sequence[int] | None = None,
+    cnn: bool = False,
 ) -> list[torch.Tensor]:
     """numpy params → tensors on ``device`` (copies; dtypes kept)."""
     dev = resolve(device)
     arrays = [np.asarray(a) for a in arrays]
-    _check([a.shape for a in arrays], expected_shapes(cfg, mlp_sizes))
+    _check([a.shape for a in arrays], expected_shapes(cfg, mlp_sizes, cnn))
     return [torch.from_numpy(np.array(a, copy=True)).to(dev) for a in arrays]
 
 
@@ -62,9 +67,10 @@ def params_to_numpy(
     *,
     cfg: transformer.TransformerConfig | None = None,
     mlp_sizes: Sequence[int] | None = None,
+    cnn: bool = False,
 ) -> list[np.ndarray]:
     """Tensors → numpy arrays on the host (dtypes kept)."""
-    _check([tuple(p.shape) for p in params], expected_shapes(cfg, mlp_sizes))
+    _check([tuple(p.shape) for p in params], expected_shapes(cfg, mlp_sizes, cnn))
     return [p.detach().cpu().numpy() for p in params]
 
 

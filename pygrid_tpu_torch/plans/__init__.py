@@ -1,6 +1,15 @@
-"""Plans: the port's own ``PlaceHolder`` and ``State`` (the wire names
-``pygrid.PlaceHolder`` and ``pygrid.State``). ``Plan`` and the translators
-are not ported yet."""
+"""Plans: the port's ``PlaceHolder``, ``State`` and ``Plan`` (the wire
+names ``pygrid.PlaceHolder``, ``pygrid.State`` and ``pygrid.Plan``) and the
+op-list dialect's translators."""
 
 from pygrid_tpu_torch.plans.placeholder import PlaceHolder  # noqa: F401
 from pygrid_tpu_torch.plans.state import State  # noqa: F401
+from pygrid_tpu_torch.plans.plan import Plan, func2plan  # noqa: F401
+from pygrid_tpu_torch.plans.translators import (  # noqa: F401
+    PLAN_VARIANTS,
+    PlanTranslatorDefault,
+    PlanTranslatorPortable,
+    PlanTranslatorXla,
+    run_oplist,
+    translate_plan,
+)

@@ -79,3 +79,14 @@ def _to_tensor(arr: Any, device: torch.device) -> torch.Tensor:
     if arr.dtype == np.dtype("V2"):  # raw bf16 values, as serde wrote them
         return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16).to(device)
     return torch.from_numpy(arr.copy()).to(device)
+
+
+def host_model_params(blob: bytes) -> list[np.ndarray]:
+    """wire bytes -> list of host numpy arrays: what the reference's
+    ``unserialize_model_params`` returns. The node's cycle manager folds
+    and averages diffs where they land, in host RAM, so it decodes with
+    this and never places a checkpoint on a device."""
+    state = deserialize(blob)
+    if not isinstance(state, State):
+        raise TypeError("blob does not contain a State")
+    return state.tensors()

@@ -79,6 +79,17 @@ _BLOCKED_IMPORT = textwrap.dedent(
     native.accum_bf16(acc, native.f32_to_bf16(np.ones(4, np.float32)))
     assert (acc == 1).all() and native.install_ws_masking() is False
     assert native.BACKEND in ("native", "numpy")
+
+    # the FL cycle's modules, and a committed JAX-built plan decoded and run
+    import pygrid_tpu_torch.federated, pygrid_tpu_torch.plans.plan
+    import pygrid_tpu_torch.plans.translators, pygrid_tpu_torch.telemetry
+    plan = serde.deserialize(open({str(PKG / "plans" / "fixtures" / "mlp_training_plan.bin")!r},
+                                  "rb").read())
+    x, y = np.zeros((64, 784), np.float32), np.eye(10, dtype=np.float32)[np.arange(64) % 10]
+    params = [np.zeros((784, 392), np.float32), np.zeros(392, np.float32),
+              np.zeros((392, 10), np.float32), np.zeros(10, np.float32)]
+    out = plan(x, y, np.float32(0.005), *params, device="cpu")
+    assert len(out) == 6 and out[2].device.type == "cpu"
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("ok", len({_modules()!r}))
@@ -174,6 +185,36 @@ def test_entry_points_without_device_cpu_raise_on_a_gpu_less_host(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         import_checkpoint(tmp_path / "ckpt")
     assert torch.equal(import_checkpoint(tmp_path / "ckpt", device="cpu")[0], torch.ones(2))
+
+
+def test_plan_and_oplist_with_device_cuda_raise_on_a_gpu_less_host():
+    """A plan or an op list asked for the card never runs on the CPU
+    instead: without a GPU, ``Plan.__call__`` and
+    ``run_oplist(backend="torch")`` with the default ``device="cuda"``
+    raise; ``device="cpu"`` runs."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from pygrid_tpu_torch import serde
+    from pygrid_tpu_torch.plans import Plan
+    from pygrid_tpu_torch.plans.translators import run_oplist
+
+    oplist = {"constvars": [], "consts": [], "invars": [0],
+              "eqns": [{"op": "neg", "in": [{"var": 0}], "out": [1], "params": {}}],
+              "outvars": [{"var": 1}]}
+    x = torch.ones(3)
+    for dev in ("cuda", "cuda:0"):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            run_oplist(oplist, x, device=dev)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        run_oplist(oplist, x)
+    assert torch.equal(run_oplist(oplist, x, device="cpu"), -x)
+    listed = Plan(name="neg", oplist=oplist)
+    built = Plan(name="neg", fn=torch.neg).build(x)
+    live = Plan(name="neg", fn=torch.neg)
+    for plan in (listed, serde.deserialize(serde.serialize(built)), live):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            plan(x)
+        assert torch.equal(plan(x, device="cpu"), -x)
 
 
 def test_chip_smoke_fails_without_a_gpu_and_outside_the_repo(runs):
