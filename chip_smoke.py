@@ -63,7 +63,18 @@ and the script exits non-zero:
               the CPU, A against B, every checkpoint against the f64 mean
               on the card, no cycle left open, no hand-written kernel
               launched; host ms per protocol step, the step's device time
-              three ways and the list's op count.
+              three ways and the list's op count;
+13. datacentric — the data-centric plane: the committed JAX-built
+              CryptoNets plan (784→392→10, batch 256) run by EncryptedModel
+              over four in-process workers on the card (alice, bob, charlie
+              hold shares, dan deals): decoded against float64 within
+              MLP_ATOL with 16 ring launches a forward, host ms, device busy
+              time, idle share and the ring kernel's share beside the class
+              API's forward; card and CPU workers bit-identical on injected
+              shares and primitives (14 launches); the pointer plane's float
+              ops against the CPU, a move keeping a private tensor private,
+              and the holders' shares through a sqlite file onto new workers,
+              whose forward decodes to (a)'s output bit for bit.
 
 Then it prints the kernels line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX
@@ -608,10 +619,9 @@ def phase_rounds(n_rounds=3):
     return counts, final
 
 
-def profile_round(fn, top=12) -> None:
-    """Device time by kernel over one more round under torch.profiler (after
-    the counted run, so its launches count nowhere), and the device's idle
-    share of the round's wall time."""
+def profiled(fn):
+    """(wall µs, the CUDA kernels' key averages) of one call of ``fn``
+    under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -621,7 +631,14 @@ def profile_round(fn, top=12) -> None:
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return wall_us, [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def profile_round(fn, top=12) -> None:
+    """Device time by kernel over one more round under torch.profiler (after
+    the counted run, so its launches count nowhere), and the device's idle
+    share of the round's wall time."""
+    wall_us, kernels = profiled(fn)
     busy_us = sum(e.self_device_time_total for e in kernels)
     if busy_us == 0:
         print("[profile] the profiler saw no device time: not measured")
@@ -1463,6 +1480,239 @@ def phase_fl(device="cuda") -> None:
 
 
 
+# --------------------------------------------------------------------------
+# phase 13: the data-centric plane
+# --------------------------------------------------------------------------
+
+# the float ops of the worker's float path, card against CPU: f32 with TF32
+# off, products of up to 784 terms summed in other orders
+DC_TOL = (1e-5, 1e-5)
+DC_SEED = 21
+
+
+def _dc_grid(device, provider):
+    """alice, bob and charlie holding shares and dan, the crypto provider,
+    dialed into each, all on ``device``."""
+    from pygrid_tpu_torch.runtime import VirtualWorker
+
+    holders = [VirtualWorker(n, device=device) for n in PARTIES]
+    dan = VirtualWorker("dan", device=device)
+    dan.crypto_provider = provider
+    for h in holders:
+        dan.add_worker(h)
+    return holders, dan
+
+
+def _dc_profile_line(tag, fn, n=3) -> None:
+    """Host ms per call (median of ``n``), then one call under
+    torch.profiler: its wall, device busy time, idle share and the ring
+    kernel's share of the busy time, printed."""
+    host = statistics.median(_host_ms(fn)[1] for _ in range(n))
+    wall_us, kernels = profiled(fn)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    head = f"[datacentric] {tag}: host {host:.3f} ms per forward (median of {n})"
+    if busy_us == 0:
+        print(f"{head}; device time not measured (the profiler saw none)")
+        return
+    ring_us = sum(e.self_device_time_total for e in kernels if "ring_matmul" in e.key)
+    print(f"{head}; profiled call wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} "
+          f"ms, idle share {1 - busy_us / wall_us:.4f}, ring kernel {ring_us / busy_us:.2%} of "
+          f"the busy time")
+
+
+def phase_datacentric(device="cuda") -> int:
+    """The data-centric plane on the card at full width: the committed
+    JAX-built CryptoNets plan (examples/encrypted_inference.py's forward at
+    x [256, 784], 784→392→10) as the reference's cross-node flow over four
+    in-process workers on ``device`` — alice, bob and charlie hold the
+    shares, dan deals. (a) ``EncryptedModel.predict``: the decoded output
+    against float64 within MLP_ATOL and 16 ring launches; host ms, device
+    busy time, idle share and the ring kernel's share, beside phase mlp's
+    class-API forward on the same inputs. (b) The same input shares, triples
+    and truncation pairs on a CPU set of workers and a card set: every
+    party's shares bit-identical at every step, 14 launches on the card.
+    (c) The pointer plane: the float ops on alice against the CPU, a move
+    to bob keeping a private tensor private, and the holders' stores
+    written through to a sqlite file, recovered by new workers onto the
+    card and run again, bit for bit. Returns (a)'s launches."""
+    import tempfile
+    from pathlib import Path
+
+    from pygrid_tpu_torch import serde
+    from pygrid_tpu_torch.datacentric import SqliteKV, recover_objects, set_persistent_mode
+    from pygrid_tpu_torch.runtime import PointerTensor, VirtualWorker, send
+    from pygrid_tpu_torch.smpc import (AdditiveSharingTensor, CryptoProvider, CryptoStore,
+                                       EncryptedModel, FixedPointEncoder, RemoteCryptoProvider,
+                                       RemoteSharedTensor, fix_prec, fix_prec_share_to_nodes)
+    from pygrid_tpu_torch.utils.exceptions import GetNotPermittedError
+
+    fixture = Path(__file__).resolve().parent / "pygrid_tpu_torch" / "plans" / "fixtures"
+    plan = serde.deserialize((fixture / "cryptonets_plan.bin").read_bytes(), device=device)
+    check(plan.oplist is not None, "datacentric: the fixture plan has no op-list")
+    x, w1, b1, w2, b2 = plain = mlp_plaintext()
+    weights = [w1, b1[0], w2, b2[0]]  # the plan's biases are [392] and [10]
+    want = mlp_forward(*plain)[-1]
+    encoder = FixedPointEncoder()
+
+    # (a) encrypted inference through EncryptedModel
+    holders, dan = _dc_grid(device, CryptoProvider(seed=DC_SEED, device=device))
+    provider = RemoteCryptoProvider(dan)
+    gw = torch.Generator(device=device).manual_seed(DC_SEED)
+    shared = [fix_prec_share_to_nodes(w, holders, crypto_provider=dan, generator=gw,
+                                      device=device) for w in weights]
+    model = EncryptedModel(plan, shared, holders, provider, encoder, device=device)
+    first, counts, secs = counted(
+        lambda: model.predict(x, generator=torch.Generator(device=device).manual_seed(1)), "ring")
+    err = float(np.abs(first - want).max())
+    print(f"[datacentric] {card_line()}; encrypted CryptoNets forward of the JAX-built plan "
+          f"({len(plan.oplist['eqns'])} ops), batch 256, 3 holders + a provider on {device}: "
+          f"{secs * 1e3:.3f} ms (first call), launches {counts}, decoded max abs err vs float64 "
+          f"{err:.4e} (limit {MLP_ATOL:.4e})")
+    check(first.shape == want.shape and bool(np.isfinite(first).all()),
+          "datacentric: bad decoded output")
+    check(err <= MLP_ATOL, f"datacentric: decoded output {err:.3e} from float64, "
+          f"limit {MLP_ATOL:.3e}")
+    check(counts["ring_matmul"] == 16,
+          f"datacentric: {counts['ring_matmul']} ring launches a forward, expected 16")
+    _dc_profile_line("EncryptedModel.predict (pointers, messages, 4 workers)",
+                     lambda: model.predict(x))
+    class_provider = CryptoProvider(seed=5, device=device)
+    class_in = [fix_prec(v).share(*PARTIES, crypto_provider=class_provider, generator=gw,
+                                  device=device) for v in plain]
+    _dc_profile_line("phase mlp's class-API forward on the same inputs",
+                     lambda: mlp_forward(*class_in)[-1].get())
+    # the kernel at this path's two launch shapes (8 launches a forward each),
+    # by events: a profiler session of one such short launch sees no device
+    # time on the card
+    from pygrid_tpu_torch.smpc import ring as R
+    from pygrid_tpu_torch.smpc import ring_matmul as rm
+
+    g = torch.Generator(device=device).manual_seed(DC_SEED + 3)
+    for M, K, N in ((256, 784, 392), (256, 392, 10)):
+        a, b = R.ring_random(g, (M, K)), R.ring_random(g, (K, N))
+        ms = time_ms(lambda: rm.ring_matmul_kernel(a, b))
+        bound, by, ops, _ = ring_bound(1, M, K, N)
+        print(f"[datacentric] ring kernel at [{M}, {K}] @ [{K}, {N}]: {ms:.4f} ms a launch "
+              f"(events, back to back), bound {bound:.4f} ms ({by}; {ops / 1e9:.2f} G int8 "
+              f"ops), {ms / bound:.1f}x the bound")
+
+    # (b) card against CPU on injected shares, triples and truncation pairs
+    scale = encoder.scale
+    dealer = CryptoProvider(seed=DC_SEED + 1, device="cpu")
+    # two sets of workers: "cpu" on the CPU, "card" on the card
+    stacks = {side: _dc_grid(dev, CryptoProvider(strict_store=True, device=dev))
+              for side, dev in (("cpu", "cpu"), ("card", device))}
+    for op, sx, sy, ts in mlp_steps():
+        items = [(CryptoStore.key(op, sx, sy, 3), dealer.triple(op, sx, sy, 3)),
+                 (CryptoStore.key("trunc", ts, (scale,), 3), dealer.trunc_pair(ts, scale, 3))]
+        for key, item in items:
+            for _, d in stacks.values():
+                d.crypto_provider.store.put(key, tuple(t.to(d.device) for t in item))
+    g_cpu = torch.Generator().manual_seed(DC_SEED + 2)
+    values = [AdditiveSharingTensor.share(v, PARTIES, encoder=encoder, generator=g_cpu,
+                                          device="cpu").shares for v in [x] + weights]
+    inputs = {side: [RemoteSharedTensor([send(sh[i].to(d.device), hs[i]) for i in range(3)],
+                                        encoder, RemoteCryptoProvider(d), device=d.device)
+                     for sh in values]
+              for side, (hs, d) in stacks.items()}
+    t0 = time.perf_counter()
+    cpu_steps = mlp_forward(*inputs["cpu"])
+    cpu_s = time.perf_counter() - t0
+    dev_steps, counts_b, secs_b = counted(lambda: mlp_forward(*inputs["card"]), "ring")
+    for k, (c, d) in enumerate(zip(cpu_steps, dev_steps)):
+        for i, (pc, pd) in enumerate(zip(c.pointers, d.pointers)):
+            sc, sd = pc.get(delete=False), pd.get(delete=False)
+            check(sd.device.type == torch.device(device).type and torch.equal(sd.cpu(), sc),
+                  f"datacentric parity: step {k}, party {PARTIES[i]}: shares differ")
+    check(counts_b["ring_matmul"] == 14,
+          f"datacentric parity: {counts_b['ring_matmul']} launches, expected 14")
+    print(f"[datacentric] injected shares, triples and truncation pairs: {device} "
+          f"({secs_b * 1e3:.3f} ms, launches {counts_b}) and CPU ({cpu_s * 1e3:.1f} ms) party "
+          f"shares bit-identical at all 3 steps, every party")
+
+    # (c) the pointer plane at the same width
+    alice, bob = VirtualWorker("alice", device=device), VirtualWorker("bob", device=device)
+    alice.add_worker(bob)
+    ref = VirtualWorker("alice", device="cpu")
+    xf, wf, bf = (v.astype(np.float32) for v in (x, w1, b1[0]))
+    cases = [("__add__", [xf, xf], {}), ("__sub__", [xf, xf[::-1].copy()], {}),
+             ("__mul__", [xf, xf], {}), ("__truediv__", [xf, np.asarray(3.0)], {}),
+             ("__matmul__", [xf, wf], {}), ("__neg__", [xf], {}), ("sum", [xf], {"axis": 0}),
+             ("mean", [xf], {}), ("max", [xf], {"axis": 1}), ("min", [xf], {}),
+             ("exp", [xf], {}), ("log", [xf], {}), ("tanh", [xf], {}), ("sqrt", [xf], {}),
+             ("abs", [xf - 0.5], {}), ("sigmoid", [xf], {}), ("relu", [xf - 0.5], {}),
+             ("t", [xf], {}), ("reshape", [xf, 784, 256], {}),
+             ("broadcast_to", [bf], {"shape": [256, 392]}), ("argmax", [xf], {"axis": 1}),
+             ("softmax", [xf], {})]
+    worst = 0.0
+    for op, args, kw in cases:
+        # tensors are sent, 0-d values and ints go as literals
+        got, cpu_out = (send(args[0], w).remote_op(
+            op, *[send(a, w) if np.ndim(a) else a for a in args[1:]], **kw).get()
+            for w in (alice, ref))
+        check(got.device.type == torch.device(device).type and got.dtype == cpu_out.dtype
+              and got.shape == cpu_out.shape, f"pointer plane: {op} dtype/shape/device differ")
+        check(torch.allclose(got.cpu(), cpu_out, rtol=DC_TOL[0], atol=DC_TOL[1]),
+              f"pointer plane: {op} differs from the CPU beyond rtol/atol {DC_TOL}")
+        if got.dtype.is_floating_point:
+            worst = max(worst, float((got.cpu() - cpu_out).abs().max()))
+    px = send(xf, alice, tags=("#x",))
+    moved = px.move(bob)
+    check(px.id_at_location not in alice.store
+          and bob.store.get_obj(moved.id_at_location).value.device.type
+          == torch.device(device).type, "pointer plane: move left a copy or left the card")
+    priv = send(xf, alice, allowed_users=("ana",), user="ana")
+    mpriv = PointerTensor(alice, priv.id_at_location, owner_user="ana").move(bob)
+    try:
+        PointerTensor(bob, mpriv.id_at_location).get()
+        leaked = True
+    except GetNotPermittedError:
+        leaked = False
+    check(not leaked and bob.store.get_obj(mpriv.id_at_location).allowed_users == {"ana"},
+          "pointer plane: a private tensor is readable after its move")
+    check(torch.equal(mpriv.get().cpu(), torch.from_numpy(xf))
+          and torch.equal(moved.get().cpu(), torch.from_numpy(xf)),
+          "pointer plane: moved values differ")
+    print(f"[datacentric] pointer plane: {len(cases)} float ops on alice ({device}) match the "
+          f"CPU within rtol/atol {DC_TOL} (worst {worst:.3e}); move to bob on the card, a "
+          f"private tensor stays private, get bit-identical")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        kv_path = f"{tmp}/objects.db"
+        _, write_ms = _host_ms(lambda: [set_persistent_mode(h, SqliteKV(kv_path))
+                                        for h in holders])
+        fresh = [VirtualWorker(h.id, device=device) for h in holders]
+        restored, read_ms = _host_ms(lambda: [recover_objects(w, SqliteKV(kv_path))
+                                              for w in fresh])
+        for old, new in zip(holders, fresh):
+            check(sorted(old.store.ids()) == sorted(new.store.ids()),
+                  f"recovery: {old.id}'s objects differ")
+            for i in old.store.ids():
+                a, b = old.store.get_obj(i).value, new.store.get_obj(i).value
+                check(isinstance(b, torch.Tensor) and b.device.type == torch.device(device).type
+                      and torch.equal(a, b), f"recovery: {old.id}'s object {i} differs")
+        new_dan = VirtualWorker("dan", device=device)
+        new_dan.crypto_provider = CryptoProvider(seed=DC_SEED, device=device)
+        for w in fresh:
+            new_dan.add_worker(w)
+        new_provider = RemoteCryptoProvider(new_dan)
+        handles = [RemoteSharedTensor([PointerTensor(w, p.id_at_location, shape=p.shape)
+                                       for w, p in zip(fresh, st.pointers)],
+                                      encoder, new_provider, device=device) for st in shared]
+        again = EncryptedModel(plan, handles, fresh, new_provider, encoder, device=device).predict(
+            x, generator=torch.Generator(device=device).manual_seed(1))
+    check(np.array_equal(again, first), "recovery: the forward on the recovered shares differs "
+          "from (a)'s first forward")
+    print(f"[datacentric] the holders' {sum(restored)} objects written through to a sqlite file "
+          f"({write_ms:.2f} ms) and recovered onto the card by new workers ({read_ms:.2f} ms), "
+          f"all bit-identical; (a)'s forward on them decodes to the same output bit for bit")
+    held = [holders[0].store.get_obj(i).value for i in holders[0].store.ids()]
+    print(f"[datacentric] {holders[0].id} holds {len(held)} objects, "
+          f"{sum(v.numel() * v.element_size() for v in held) / 1e6:.3f} MB: {len(weights)} "
+          f"weight shares and what the forwards left (nothing deletes intermediate shares)")
+    return counts["ring_matmul"]
+
+
 def main() -> int:
     check(torch.cuda.is_available(), "no CUDA GPU: chip_smoke.py runs on the card only")
     import pygrid_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
@@ -1483,9 +1733,9 @@ def main() -> int:
     timing["ring_matmul"] = phase_ring_timing()
     smpc_launches = phase_smpc_rounds()
     mlp_launches, mlp_out = phase_encrypted_mlp()
-    launches["ring_matmul"] = smpc_launches + mlp_launches
     phase_wire(params, mlp_out)
     phase_fl()
+    launches["ring_matmul"] = smpc_launches + mlp_launches + phase_datacentric()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -10,8 +10,10 @@ Ported so far: the federated transformer round — the transformer and MLP
 models, the FedAvg round builders (opaque and fused) and flash attention
 with its forward, dK/dV and dQ kernels — and the SMPC compute plane
 (:mod:`pygrid_tpu_torch.smpc`) with its Z_2^64 ring-matmul kernel, the
-node's wire and storage plane (``serde``, ``native``, ``storage``), and the
-model-centric FL cycle (``federated``, ``plans``, ``telemetry``). Entry
+node's wire and storage plane (``serde``, ``native``, ``storage``), the
+model-centric FL cycle (``federated``, ``plans``, ``telemetry``), and the
+data-centric plane (``runtime``, ``smpc.remote``, ``smpc.encrypted_model``,
+``datacentric``). Entry
 points take ``device`` and default to ``"cuda"``; without a GPU they raise
 unless the caller passes ``device="cpu"``.
 """

@@ -234,6 +234,7 @@ def _make_ext_hook(copy: bool, device=None):
 _LAZY_MODULES = (
     "pygrid_tpu_torch.plans",
     "pygrid_tpu_torch.smpc",
+    "pygrid_tpu_torch.runtime",
 )
 
 

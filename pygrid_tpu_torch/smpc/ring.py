@@ -111,6 +111,41 @@ def lead_matmul(a: torch.Tensor, b: torch.Tensor, n_lead: int) -> torch.Tensor:
     return out.reshape(lead + ms + ns)
 
 
+def ring_matmul_np(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact matmul over Z_2^64 with ``np.matmul``'s semantics (where
+    :func:`ring_matmul` has the reference's contraction): a 1-D ``a`` gains
+    and loses a leading unit axis, a 1-D ``b`` a trailing one, and the
+    batch axes in front of the last two broadcast. The broadcast batch axes
+    are expanded (stride 0, not copied); more than two are folded into one.
+    Every call is one launch of the kernel on the card. Raises ``ValueError``
+    where ``np.matmul`` does."""
+    if a.dim() == 0 or b.dim() == 0:
+        raise ValueError(f"matmul: Input operand {0 if a.dim() == 0 else 1} does "
+                         "not have enough dimensions")
+    a2 = a.unsqueeze(0) if a.dim() == 1 else a
+    b2 = b.unsqueeze(-1) if b.dim() == 1 else b
+    if a2.shape[-1] != b2.shape[-2]:
+        raise ValueError(f"matmul: Input operand 1 has a mismatch in its core dimension: "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)}")
+    try:
+        batch = tuple(torch.broadcast_shapes(a2.shape[:-2], b2.shape[:-2]))
+    except RuntimeError as err:
+        raise ValueError(f"operands could not be broadcast together: "
+                         f"{tuple(a.shape)} @ {tuple(b.shape)}") from err
+    a3 = a2.expand(batch + tuple(a2.shape[-2:]))
+    b3 = b2.expand(batch + tuple(b2.shape[-2:]))
+    if len(batch) > 2:
+        a3 = a3.reshape((math.prod(batch),) + tuple(a2.shape[-2:]))
+        b3 = b3.reshape((math.prod(batch),) + tuple(b2.shape[-2:]))
+    out = lead_matmul(a3, b3, 1 if len(batch) > 2 else len(batch))
+    out = out.reshape(batch + tuple(out.shape[-2:]))
+    if a.dim() == 1:
+        out = out.squeeze(-2)
+    if b.dim() == 1:
+        out = out.squeeze(-1)
+    return out
+
+
 # --- division by a small public constant (for fixed-point truncation) -------
 
 

@@ -1,7 +1,7 @@
 """The port stands alone: pygrid_tpu_torch imports neither ``jax`` nor
 anything of ``pygrid_tpu``, nor the packages the card's machine lacks
-(``msgpack``, ``ml_dtypes``, ``orbax``; ``websockets`` only lazily), and its
-entry points never move to the CPU unless asked."""
+(``msgpack``, ``ml_dtypes``, ``orbax``; ``websockets`` and ``requests`` only
+lazily), and its entry points never move to the CPU unless asked."""
 
 import ast
 import os
@@ -35,7 +35,7 @@ def _modules() -> list[str]:
 #: never imported by the port: the reference, and what the card's machine lacks
 BANNED = ("jax", "jaxlib", "pygrid_tpu", "msgpack", "ml_dtypes", "orbax")
 #: imported only inside a function, where it is optional
-LAZY = ("websockets",)
+LAZY = ("websockets", "requests")
 
 
 def _banned(name: str) -> bool:
@@ -90,6 +90,27 @@ _BLOCKED_IMPORT = textwrap.dedent(
               np.zeros((392, 10), np.float32), np.zeros(10, np.float32)]
     out = plan(x, y, np.float32(0.005), *params, device="cpu")
     assert len(out) == 6 and out[2].device.type == "cpu"
+
+    # the data-centric plane: encrypted inference of the committed JAX-built
+    # CryptoNets plan over three in-process workers and a provider
+    from pygrid_tpu_torch.runtime import VirtualWorker
+    from pygrid_tpu_torch.smpc import (CryptoProvider, EncryptedModel, FixedPointEncoder,
+                                       RemoteCryptoProvider, fix_prec_share_to_nodes)
+    import pygrid_tpu_torch.datacentric
+    plan = serde.deserialize(open({str(PKG / "plans" / "fixtures" / "cryptonets_plan.bin")!r},
+                                  "rb").read(), device="cpu")
+    holders = [VirtualWorker(n, device="cpu") for n in ("alice", "bob", "charlie")]
+    dan = VirtualWorker("dan", device="cpu")
+    dan.crypto_provider = CryptoProvider(seed=1, device="cpu")
+    for h in holders:
+        dan.add_worker(h)
+    provider = RemoteCryptoProvider(dan)
+    weights = [np.full(s["shape"], 0.01) for s in plan.input_specs[1:]]
+    shared = [fix_prec_share_to_nodes(w, holders, crypto_provider=provider, device="cpu")
+              for w in weights]
+    model = EncryptedModel(plan, shared, holders, provider, FixedPointEncoder(), device="cpu")
+    pred = model.predict(np.full((256, 784), 0.5, np.float32))
+    assert pred.shape == (256, 10) and np.isfinite(pred).all()
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("ok", len({_modules()!r}))
@@ -131,9 +152,10 @@ def _wait(proc):
 def test_every_module_imports_with_jax_and_pygrid_tpu_blocked(runs):
     """A fresh interpreter with a meta-path hook refusing ``jax``, the
     exact top-level name ``pygrid_tpu`` (not ``pygrid_tpu_torch``),
-    ``msgpack``, ``ml_dtypes``, ``orbax`` and ``websockets`` imports every
-    module of the port and chip_smoke.py, and runs the port's serde, frame,
-    native and model-params round trips, as the card's machine would."""
+    ``msgpack``, ``ml_dtypes``, ``orbax``, ``websockets`` and ``requests``
+    imports every module of the port and chip_smoke.py, and runs the port's
+    serde, frame, native and model-params round trips, a committed JAX-built
+    plan and an encrypted forward, as the card's machine would."""
     rc, stdout, stderr = _wait(runs["blocked_import"])
     assert rc == 0, stderr
     assert stdout.startswith("ok")

@@ -561,11 +561,33 @@ def test_port_built_plan_runs_in_a_fresh_process_with_only_the_port_serde(
 # --- the committed JAX-built fixtures -------------------------------------------
 
 
+#: the encrypted CryptoNets MLP's shapes: x, w1, b1, w2, b2 at batch 256
+CRYPTONETS_SHAPES = ((256, 784), (784, 392), (392,), (392, 10), (10,))
+
+
+def cryptonets_forward(x, w1, b1, w2, b2):
+    """examples/encrypted_inference.py's ``forward``: the CryptoNets-style
+    MLP, affine → square → affine."""
+    h = x @ w1 + b1
+    h = h * h
+    return h @ w2 + b2
+
+
+def build_cryptonets_plan(shapes=CRYPTONETS_SHAPES, plan_id="cryptonets-784-392-10-b256"):
+    """The JAX-built encrypted-inference plan at ``shapes`` (a fixed id
+    keeps the bytes stable)."""
+    plan = JPlan(name="encrypted_forward", id=plan_id, fn=cryptonets_forward)
+    plan.build(*[np.zeros(s, np.float32) for s in shapes])
+    return plan
+
+
 def build_fixture_plans() -> dict[str, bytes]:
-    """The JAX-built training plans the card's machine (which has no JAX)
-    trains: the example's MLP (784→392→10, batch 64, lr 0.005 —
-    examples/model_centric/01_create_plan.py) and the MNIST CNN at its
-    published widths, batch 64. Fixed plan ids keep the bytes stable."""
+    """The JAX-built plans the card's machine (which has no JAX) runs: the
+    training plans of the example's MLP (784→392→10, batch 64, lr 0.005 —
+    examples/model_centric/01_create_plan.py) and of the MNIST CNN at its
+    published widths, batch 64; and the encrypted-inference plan of
+    examples/encrypted_inference.py at 784→392→10, batch 256. Fixed plan
+    ids keep the bytes stable."""
     mlp_params = [np.asarray(p) for p in jmlp.init(jax.random.PRNGKey(42), (784, 392, 10))]
     mlp_plan = JPlan(name="training_plan", id="mnist-mlp-784-392-10-b64", fn=jmlp.training_step)
     mlp_plan.build(np.zeros((64, 784), np.float32), np.zeros((64, 10), np.float32),
@@ -575,7 +597,8 @@ def build_fixture_plans() -> dict[str, bytes]:
     cnn_plan.build(np.zeros((64, 28, 28, 1), np.float32), np.zeros((64, 10), np.float32),
                    np.float32(0.005), *cnn_params)
     return {"mlp_training_plan.bin": jserde.serialize(mlp_plan),
-            "cnn_training_plan.bin": jserde.serialize(cnn_plan)}
+            "cnn_training_plan.bin": jserde.serialize(cnn_plan),
+            "cryptonets_plan.bin": jserde.serialize(build_cryptonets_plan())}
 
 
 def write_fixtures(out_dir: Path = FIXTURES) -> None:
