@@ -75,6 +75,20 @@ and the script exits non-zero:
               ops against the CPU, a move keeping a private tensor private,
               and the holders' shares through a sqlite file onto new workers,
               whose forward decodes to (a)'s output bit for bit.
+14. serving — generation serving at the flagship width (phase rounds'
+              config, random weights from a seed): (a) ``generate`` at
+              bench_decode's shape (B=8, P=32, N=256, bf16 compute) with
+              tokens/s, ms per step, device busy, idle share and kernels per
+              step; (b) the paged engine on bench_serving's 8 concurrent
+              requests (f32 cache), no program built under traffic, host ms
+              per quantum; (c) 16 requests sharing a 4-page system prompt
+              (block 64): prefix hits and no leaked block; (d) the engine
+              per step and with speculative decode; every request's greedy
+              tokens against ``generate``'s — equal, or diverging only at a
+              near tie of generate's logits (top-2 gap <= 1e-4 x max
+              |logit|); (e) the first prefill's and decode step's f32 logits
+              against the CPU within 1e-4 and the PRNG's bits equal to the
+              CPU's. The path launches none of the four kernels.
 
 Then it prints the kernels line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX
@@ -1713,6 +1727,299 @@ def phase_datacentric(device="cuda") -> int:
     return counts["ring_matmul"]
 
 
+# --------------------------------------------------------------------------
+# phase 14: serving
+# --------------------------------------------------------------------------
+
+# a greedy divergence between the engine and generate() is allowed only
+# where generate()'s own top-2 logit gap is at most this share of its
+# largest |logit|: cuBLAS may pick another kernel for a width-8 step than
+# for generate()'s batch of 1, and another rounding flips a near tie
+SERVE_TIE = 1e-4
+# the card against the CPU: f32 logits at rtol and atol 1e-4
+SERVE_CPU_TOL = 1e-4
+
+
+def _serve_cases(cfg, rng, n=8, base_new=48):
+    """bench_serving's traffic: ``n`` single-row prompts of 2–9 tokens,
+    every request a distinct n_new from ``base_new`` up."""
+    return [(rng.randint(0, cfg.vocab, size=(1, int(rng.randint(2, 10)))).astype(np.int32),
+             base_new + i) for i in range(n)]
+
+
+def _logits_at(params, cfg, prompt, toks, j, device):
+    """generate()'s logits for its token ``j``: the prefill of ``prompt``
+    and ``j`` decode steps fed generate()'s own tokens, as generate() ran
+    them (batch 1, f32)."""
+    from pygrid_tpu_torch.models import decode
+
+    cache = decode.init_cache(cfg, 1, device=device)
+    logits, cache = decode.prefill(params, cache, torch.as_tensor(prompt).long().to(device), cfg)
+    for i in range(j):
+        tok = torch.tensor([int(toks[i])], device=device)
+        logits, cache = decode.decode_step(params, cache, tok, cfg)
+    return logits[0].float().cpu()
+
+
+def _serve_match(tag, params, cfg, cases, outs, refs, device) -> list:
+    """Hold each request's tokens against generate()'s: equal, or the first
+    divergent position sits at a near tie of generate()'s logits. Returns
+    the divergences as (request, position, gap, limit)."""
+    found = []
+    for i, ((prompt, _), got, ref) in enumerate(zip(cases, outs, refs)):
+        got, ref = np.asarray(got)[0], np.asarray(ref)[0]
+        if np.array_equal(got, ref):
+            continue
+        j = int(np.flatnonzero(got != ref)[0])
+        row = _logits_at(params, cfg, prompt, ref, j, device)
+        top2 = torch.topk(row, 2).values
+        gap = float(top2[0] - top2[1])
+        limit = SERVE_TIE * float(row.abs().max())
+        print(f"[serving] {tag}: request {i} diverges from generate() at token {j} "
+              f"(engine {got[j]}, generate {ref[j]}); generate's top-2 gap there {gap:.3e}, "
+              f"near-tie limit {limit:.3e}")
+        check(gap <= limit, f"{tag}: request {i} diverges at token {j} where generate()'s top-2 "
+              f"gap {gap:.3e} exceeds the near-tie limit {limit:.3e}")
+        found.append((i, j, gap, limit))
+    return found
+
+
+def _drive(engine, cases, timeout=600):
+    """Every case submitted from its own thread at once; (outputs, wall s)."""
+    import threading
+
+    outs = [None] * len(cases)
+    errors = []
+
+    def go(i):
+        try:
+            outs[i] = engine.submit(*cases[i], timeout=timeout)
+        except Exception as err:  # noqa: BLE001 — re-raised below
+            errors.append(err)
+
+    threads = [threading.Thread(target=go, args=(i,)) for i in range(len(cases))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    secs = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return outs, secs
+
+
+def _quantum_timer(engine, name):
+    """Wrap the engine's ``name`` method (one quantum of decode: a fused
+    call or a speculative cycle, each ending in the token fetch) to record
+    its host milliseconds."""
+    orig = getattr(engine, name)
+    samples = []
+
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = orig(*a, **kw)
+        samples.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    setattr(engine, name, timed)
+    return samples
+
+
+def _serve_profile(tag, fn, top=0):
+    """One call of ``fn`` under torch.profiler: (wall ms, busy ms, kernels)
+    printed with the idle share, and the ``top`` kernels by device time."""
+    wall_us, kernels = profiled(fn)
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    n = sum(e.count for e in kernels)
+    if busy_us == 0:
+        print(f"[serving] {tag}: the profiler saw no device time: not measured")
+        return wall_us / 1e3, None, n
+    print(f"[serving] {tag}: profiled wall {wall_us / 1e3:.3f} ms, device busy "
+          f"{busy_us / 1e3:.3f} ms, idle share {1 - busy_us / wall_us:.4f}, {n} kernels")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"[serving]   {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.self_device_time_total / busy_us:7.2%} x{e.count:<6d} {e.key[:90]}")
+    return wall_us / 1e3, busy_us / 1e3, n
+
+
+def phase_serving(device="cuda") -> None:
+    """Generation serving at the flagship width (``full_config()``, random
+    weights from seed 0), through the port's entry points on ``device``."""
+    from pygrid_tpu_torch import telemetry
+    from pygrid_tpu_torch.models import decode, transformer
+    from pygrid_tpu_torch.serving import EngineConfig, GenerationEngine
+    from pygrid_tpu_torch.utils import prng
+
+    cfg = full_config()
+    g = torch.Generator().manual_seed(0)
+    params = transformer.init(cfg, generator=g, device=device)
+    counters = _counters()
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset_launch_counts()
+
+    # (a) generate() at bench_decode's shape, bf16 compute
+    B, P, N = 8, 32, 256
+    prompt = torch.randint(0, cfg.vocab, (B, P), generator=g).to(device)
+    cast = decode.cast_params(params, "bfloat16")
+
+    def gen():
+        return decode.generate(params, prompt, N, cfg, compute_dtype="bfloat16", cast_cache=cast)
+
+    out, first_ms = _host_ms(gen)
+    check(tuple(out.shape) == (B, N) and bool(((out >= 0) & (out < cfg.vocab)).all()),
+          f"generate: tokens of shape {tuple(out.shape)} or out of the vocabulary")
+    again, _ = _host_ms(gen)
+    check(torch.equal(out, again), "generate: two greedy calls gave different tokens")
+    runs = [_host_ms(gen)[1] for _ in range(3)]
+    best = min(runs)
+    print(f"[serving] generate B={B} P={P} N={N} bf16: first call {first_ms:.1f} ms, then "
+          f"{[round(r, 3) for r in runs]} ms; best {best:.3f} ms = {B * N / best * 1e3:.1f} "
+          f"tokens/s, {best / N:.4f} ms per step (prefill included)")
+    wall, busy, n_kernels = _serve_profile("generate", gen, top=8)
+    weights = sum(p.numel() for p in params)
+    bound_us = weights * 2 / PEAK_BYTES * 1e6  # the bf16 weights read once a step
+    print(f"[serving] generate: {n_kernels / N:.1f} kernels per step; a step's weight read "
+          f"({weights / 1e6:.2f} M params in bf16) bounds it at {bound_us:.2f} us")
+    # the host's share: 64 decode steps enqueued with no sync between them,
+    # against the same 64 steps ending in a sync
+    cache = decode.init_cache(cfg, B, dtype="bfloat16", device=device)
+    _, cache = decode.prefill(params, cache, prompt, cfg, "bfloat16", cast)
+    tok = prompt[:, -1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(64):
+        _, cache = decode.decode_step(params, cache, tok, cfg, "bfloat16", cast)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / 64
+    torch.cuda.synchronize()
+    synced_ms = (time.perf_counter() - t0) * 1e3 / 64
+    print(f"[serving] decode_step at B={B}: {enqueue_ms:.4f} ms a step to enqueue, "
+          f"{synced_ms:.4f} ms a step with the device's finish")
+
+    # (e) the card against the CPU (f32), and the PRNG's bits
+    if torch.device(device).type == "cuda":
+        cpu_params = [p.cpu() for p in params]
+        got, want = [], []
+        for dev, ps in ((device, params), ("cpu", cpu_params)):
+            cache = decode.init_cache(cfg, B, device=dev)
+            lp, cache = decode.prefill(ps, cache, prompt.to(dev), cfg)
+            ls, cache = decode.decode_step(ps, cache, prompt[:, 0].to(dev), cfg)
+            (got if dev == device else want).append((lp.cpu(), ls.cpu()))
+        errs = [float((a - b).abs().max()) for a, b in zip(got[0], want[0])]
+        ok = all(torch.allclose(a, b, rtol=SERVE_CPU_TOL, atol=SERVE_CPU_TOL)
+                 for a, b in zip(got[0], want[0]))
+        print(f"[serving] card vs CPU, f32 B={B}: prefill logits max abs err {errs[0]:.3e}, "
+              f"decode step {errs[1]:.3e} (rtol/atol {SERVE_CPU_TOL})")
+        check(ok, f"card vs CPU: logits differ by {errs}")
+        keys = {}
+        for dev in (device, "cpu"):
+            k = prng.split(prng.PRNGKey(20260, device=dev), 64)
+            keys[dev] = (k.cpu(), prng.random_bits(k, (8, 8192)).cpu(),
+                         prng.uniform(prng.fold_in(k, 3), (100,)).cpu())
+        check(all(torch.equal(a, b) for a, b in zip(keys[device], keys["cpu"])),
+              "PRNG: the card's bits differ from the CPU's")
+        print("[serving] PRNG: split, fold_in, random bits and uniform bit-identical to the CPU "
+              f"({keys['cpu'][1].numel()} words)")
+
+    # (b) the engine on bench_serving's traffic: 8 concurrent requests
+    rng = np.random.RandomState(7)
+    cases = _serve_cases(cfg, rng)
+    refs = [decode.generate(params, torch.from_numpy(p).long().to(device), n, cfg).cpu().numpy()
+            for p, n in cases]
+    total = sum(n for _, n in cases)
+    engine = GenerationEngine(cfg, params, EngineConfig(max_slots=8, cache_dtype=torch.float32),
+                              model_id="smoke", device=device)
+    try:
+        engine.warmup(prompt_lens=(max(p.shape[1] for p, _ in cases),))
+        built = engine.compile_count()
+        quanta = _quantum_timer(engine, "_fused_scan")
+        outs, secs = _drive(engine, cases)
+        check(engine.compile_count() == built,
+              f"engine: {engine.compile_count() - built} programs built under traffic")
+        check(engine.programs.trace_count() == engine.compile_count(),
+              "engine: a program saw a second argument signature")
+        div = _serve_match("engine", params, cfg, cases, outs, refs, device)
+        stats = engine.stats()
+        launch = {r["bucket"]: r["execute_ms_mean"] for r in telemetry.profiler.programs_snapshot()
+                  if r["model"] == "smoke" and r["kind"] == "paged_decode_fused" and r["hits"]}
+        print(f"[serving] engine, 8 concurrent requests, {total} tokens: {secs * 1e3:.1f} ms = "
+              f"{total / secs:.1f} tokens/s; {built} programs, none built under traffic; "
+              f"{len(div)} of 8 requests diverge from generate() (near ties)")
+        print(f"[serving] engine: {stats['fused_scans']} fused quanta of {engine.config.quantum} "
+              f"steps, host ms per quantum (call + token fetch) median "
+              f"{statistics.median(quanta):.3f}, range {min(quanta):.3f}-{max(quanta):.3f}; "
+              f"launch only (profiler execute mean, by width) {launch} ms")
+        engine_wall, engine_busy, _ = _serve_profile("engine, the same 8 requests again",
+                                                     lambda: _drive(engine, cases))
+        led = engine.ledger()
+        check(led["balanced"] and led["drained"], f"engine: ledger not balanced: {led}")
+    finally:
+        engine.close()
+
+    # (d) the same traffic per step, and with speculative decode
+    for tag, over in (("per-step", dict(fused=False)), ("spec", dict(spec_decode=True))):
+        eng = GenerationEngine(cfg, params,
+                               EngineConfig(max_slots=8, cache_dtype=torch.float32, **over),
+                               model_id=f"smoke-{tag}", device=device)
+        try:
+            eng.warmup(prompt_lens=(max(p.shape[1] for p, _ in cases),))
+            built = eng.compile_count()
+            outs_t, secs_t = _drive(eng, cases)
+            check(eng.compile_count() == built, f"{tag}: programs built under traffic")
+            _serve_match(tag, params, cfg, cases, outs_t, refs, device)
+            st = eng.stats()
+            extra = (f", acceptance {st['spec_acceptance']} over {st['spec_verifies']} verifies "
+                     f"(k={st['spec_k']}, {st['spec_draft_layers']} draft layers)"
+                     if tag == "spec" else "")
+            print(f"[serving] {tag}: {secs_t * 1e3:.1f} ms = {total / secs_t:.1f} tokens/s{extra}")
+            check(eng.ledger()["balanced"], f"{tag}: ledger not balanced")
+        finally:
+            eng.close()
+
+    # (c) prefix sharing on bench_serving_paged's traffic: 16 requests
+    # sharing a 4-page system prompt, block 64
+    block, pages, n_prefix = 64, 4, 16
+    prng_np = np.random.RandomState(11)
+    sys_prompt = prng_np.randint(0, cfg.vocab, size=pages * block).astype(np.int32)
+    pcases = [(np.concatenate([sys_prompt, prng_np.randint(0, cfg.vocab, size=4)
+                               .astype(np.int32)])[None, :], 6) for _ in range(n_prefix)]
+    prefs = [decode.generate(params, torch.from_numpy(p).long().to(device), n, cfg).cpu().numpy()
+             for p, n in pcases]
+    slots = 8 * cfg.max_len // block
+    eng = GenerationEngine(cfg, params, EngineConfig(
+        max_slots=slots, slot_buckets=(1, 4, 8, slots), block_size=block,
+        num_blocks=slots + 1, max_queue=4 * slots, cache_dtype=torch.float32),
+        model_id="smoke-prefix", device=device)
+    try:
+        eng.warmup(prompt_lens=(8, pages * block + 4, 5))
+        built = eng.compile_count()
+        first, first_s = _drive(eng, pcases[:1])
+        rest, rest_s = _drive(eng, pcases[1:])
+        check(eng.compile_count() == built, "prefix: programs built under traffic")
+        _serve_match("prefix", params, cfg, pcases, first + rest, prefs, device)
+        st = eng.stats()
+        check(st["prefix_hits"] >= n_prefix - 1 and
+              st["prefix_tokens_saved"] >= (n_prefix - 1) * pages * block,
+              f"prefix: {st['prefix_hits']} hits, {st['prefix_tokens_saved']} tokens saved")
+        led = eng.ledger()
+        check(led["balanced"] and led["drained"], f"prefix: ledger not balanced: {led}")
+        eng._prefix.clear()
+        check(eng._pool.free_count() == eng._pool.usable,
+              f"prefix: {eng._pool.usable - eng._pool.free_count()} blocks leaked")
+        print(f"[serving] prefix: {n_prefix} requests on a {pages * block}-token system prompt, "
+              f"block {block}: {st['prefix_hits']} hits, {st['prefix_tokens_saved']} prompt "
+              f"tokens not prefilled again; first request {first_s * 1e3:.1f} ms, the other "
+              f"{n_prefix - 1} together {rest_s * 1e3:.1f} ms; no block leaked")
+    finally:
+        eng.close()
+
+    torch.cuda.synchronize()
+    launches = {k: n for c in counters.values() for k, n in c.launch_counts().items()}
+    check(not any(launches.values()), f"the serving path launched hand-written kernels: {launches}")
+    print("[serving] the serving path launched none of the four kernels")
+
+
 def main() -> int:
     check(torch.cuda.is_available(), "no CUDA GPU: chip_smoke.py runs on the card only")
     import pygrid_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
@@ -1736,6 +2043,7 @@ def main() -> int:
     phase_wire(params, mlp_out)
     phase_fl()
     launches["ring_matmul"] = smpc_launches + mlp_launches + phase_datacentric()
+    phase_serving()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

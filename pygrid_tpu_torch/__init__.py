@@ -11,9 +11,10 @@ models, the FedAvg round builders (opaque and fused) and flash attention
 with its forward, dK/dV and dQ kernels — and the SMPC compute plane
 (:mod:`pygrid_tpu_torch.smpc`) with its Z_2^64 ring-matmul kernel, the
 node's wire and storage plane (``serde``, ``native``, ``storage``), the
-model-centric FL cycle (``federated``, ``plans``, ``telemetry``), and the
+model-centric FL cycle (``federated``, ``plans``, ``telemetry``), the
 data-centric plane (``runtime``, ``smpc.remote``, ``smpc.encrypted_model``,
-``datacentric``). Entry
+``datacentric``), and generation serving (``models.decode``, ``serving``,
+``utils.prng``, ``telemetry.profiler``/``recorder``). Entry
 points take ``device`` and default to ``"cuda"``; without a GPU they raise
 unless the caller passes ``device="cpu"``.
 """

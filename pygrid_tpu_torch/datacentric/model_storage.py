@@ -41,6 +41,9 @@ class HostedModel:
     allow_remote_inference: bool = False
     mpc: bool = False
     serialized: bytes | None = field(default=None, repr=False)
+    #: per-process memo of the parsed generative bundle — (cfg, device
+    #: params) — filled by ``ServingManager.engine_for`` on first use
+    generation_cache: Any = field(default=None, repr=False, compare=False)
 
     def flags(self) -> dict[str, Any]:
         return {

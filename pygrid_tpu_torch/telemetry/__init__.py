@@ -2,15 +2,18 @@
 spine: the process-wide event bus (:mod:`.bus`: ring-buffered events,
 labelled counters, log-linear histograms), distributed-trace context with
 its 24-byte wire header (:mod:`.trace`), and the per-FL-cycle round
-timelines the cycle manager writes (:mod:`.timeline`).
+timelines the cycle manager writes (:mod:`.timeline`), the per-program
+compile/execute profiler and device-memory sampler the serving programs
+report to (:mod:`.profiler`), and the flight recorder the serving engine
+dumps to on failure (:mod:`.recorder`).
 
-The reference's ``profiler``, ``recorder``, ``slo``, ``promtext`` and
-``http_middleware`` (aiohttp) come with the port's apps and are not here.
+The reference's ``slo``, ``promtext`` and ``http_middleware`` (aiohttp)
+come with the port's apps and are not here yet.
 """
 
 from __future__ import annotations
 
-from pygrid_tpu_torch.telemetry import timeline, trace  # noqa: F401
+from pygrid_tpu_torch.telemetry import profiler, recorder, timeline, trace  # noqa: F401
 from pygrid_tpu_torch.telemetry.bus import (  # noqa: F401
     BUS,
     Histogram,

@@ -113,7 +113,7 @@ _FAMILY_HELP: dict[str, str] = {
     "cycles_completed_total": "FL cycles closed, by outcome",
     "heartbeat_rtt_seconds": "network→node heartbeat round trip, by transport",
     "monitor_polls_total": "monitor sweeps per node, by outcome",
-    # continuous-batching generation engine (serving/, not ported yet)
+    # continuous-batching generation engine (serving/)
     "serving_requests_total": "generation requests, by model and outcome",
     "serving_tokens_total": "generated tokens served, by model",
     "serving_compiles_total": "serving program compiles, by kind",

@@ -111,6 +111,22 @@ _BLOCKED_IMPORT = textwrap.dedent(
     model = EncryptedModel(plan, shared, holders, provider, FixedPointEncoder(), device="cpu")
     pred = model.predict(np.full((256, 784), 0.5, np.float32))
     assert pred.shape == (256, 10) and np.isfinite(pred).all()
+
+    # generation serving: the paged engine against generate()
+    from pygrid_tpu_torch.models import decode, transformer
+    from pygrid_tpu_torch.serving import EngineConfig, GenerationEngine
+    cfg = transformer.TransformerConfig(vocab=31, d_model=16, n_heads=2, n_layers=2, d_ff=32,
+                                        max_len=32)
+    tparams = transformer.init(cfg, device="cpu")
+    engine = GenerationEngine(cfg, tparams, EngineConfig(max_slots=2, slot_buckets=(1, 2),
+                                                         min_prompt_bucket=8, block_size=8,
+                                                         spec_decode=True),
+                              device="cpu")
+    try:
+        got = engine.submit(np.array([[3, 5, 2]]), 6)
+    finally:
+        engine.close()
+    assert (got == decode.generate(tparams, torch.tensor([[3, 5, 2]]), 6, cfg).numpy()).all()
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("ok", len({_modules()!r}))
@@ -155,7 +171,8 @@ def test_every_module_imports_with_jax_and_pygrid_tpu_blocked(runs):
     ``msgpack``, ``ml_dtypes``, ``orbax``, ``websockets`` and ``requests``
     imports every module of the port and chip_smoke.py, and runs the port's
     serde, frame, native and model-params round trips, a committed JAX-built
-    plan and an encrypted forward, as the card's machine would."""
+    plan, an encrypted forward and a speculative paged engine, as the
+    card's machine would."""
     rc, stdout, stderr = _wait(runs["blocked_import"])
     assert rc == 0, stderr
     assert stdout.startswith("ok")

@@ -1,10 +1,13 @@
 """The port's telemetry spine and profiling helpers against the JAX
 package's: the same sequence of calls into both packages' bus, trace and
 timeline gives equal counters, histograms, events, trace header bytes and
-timeline snapshots, timestamps and random span ids aside."""
+timeline snapshots, timestamps and random span ids aside; the serving
+path's program profiler and flight recorder give equal rows and dumps."""
 
 import datetime as dt
+import json
 import os
+import time
 import types
 
 import numpy as np
@@ -170,3 +173,174 @@ def test_device_trace_writes_a_chrome_trace_and_never_moves_to_the_cpu(tmp_path)
         with pytest.raises(RuntimeError, match="no CUDA GPU"):
             with profiling.device_trace(str(tmp_path / "gpu")):
                 pass
+
+
+# ── the profiler and the flight recorder (serving's telemetry) ──────────
+
+from pygrid_tpu.telemetry import profiler as jprofiler  # noqa: E402
+from pygrid_tpu.telemetry import recorder as jrecorder  # noqa: E402
+from pygrid_tpu_torch.telemetry import profiler as tprofiler  # noqa: E402
+from pygrid_tpu_torch.telemetry import recorder as trecorder  # noqa: E402
+
+PROFILERS = {"jax": (jtel, jprofiler), "torch": (ttel, tprofiler)}
+_TIMES = {"compile_ms", "execute_ms_total", "execute_ms_mean"}
+
+
+class _Program:
+    """A program whose signature cache grows on the calls listed."""
+
+    def __init__(self, grows_on):
+        self.calls, self._size, self.grows_on = 0, 0, set(grows_on)
+
+    def __call__(self, x):
+        if self.calls in self.grows_on:
+            self._size += 1
+        self.calls += 1
+        return x + 1
+
+    def _cache_size(self):
+        return self._size
+
+
+def _feed_profiler(tel, prof):
+    p = prof.JitSiteProfiler()
+    a = p.wrap(_Program({0, 3}), kind="paged_decode", bucket=4, model_id="m")
+    b = p.wrap(lambda x: x * 2, kind="prefill", bucket=16, model_id="m")
+    c = p.wrap(_Program({0}), kind="paged_decode", bucket=4, model_id="m")  # a re-host
+    for i in range(5):
+        assert a(i) == i + 1
+    for i in range(3):
+        assert b(i) == 2 * i
+    c(0), c(1)
+    hists = {k: v["count"] for (k, _), v in tel.histograms().items() if k.startswith("profiler")}
+    return p.snapshot(), hists, getattr(a, "_cache_size", None) is not None
+
+
+def test_profiler_splits_compiles_and_hits_like_the_jax_package():
+    """The same calls into both packages' profilers: a call that grew the
+    program's cache is a compile, others are hits; without the hook the
+    first call is the compile; a rebuilt program's first call compiles
+    again. Rows and histogram counts equal, times aside."""
+    out = {}
+    for name, (tel, prof) in PROFILERS.items():
+        rows, hists, hooked = _feed_profiler(tel, prof)
+        out[name] = ([{k: v for k, v in r.items() if k not in _TIMES} for r in rows], hists,
+                     hooked)
+    assert out["torch"] == out["jax"]
+    rows = {r["kind"]: r for r in out["torch"][0]}
+    assert rows["paged_decode"]["compiles"] == 3 and rows["paged_decode"]["hits"] == 4
+    assert rows["prefill"]["compiles"] == 1 and rows["prefill"]["hits"] == 2
+
+
+def test_profiler_off_switch_returns_the_function(monkeypatch):
+    monkeypatch.setenv("PYGRID_PROFILER", "off")
+    fn = _Program({0})
+    assert tprofiler.JitSiteProfiler().wrap(fn, kind="k", bucket=1) is fn
+    assert not tprofiler.cost_enabled()
+    sampler = tprofiler.DeviceMemorySampler(interval_s=0.01)
+    sampler.start()
+    assert sampler._thread is None
+    sampler.stop()
+
+
+def test_profiler_cost_counts_flops_on_meta_tensors():
+    """Cost attribution replays the first call on meta tensors under
+    FlopCounterMode: 2·M·N·K for a product, bytes of arguments and
+    outputs; the real arguments are never touched again."""
+    p = tprofiler.JitSiteProfiler()
+    calls = []
+
+    def program(params, x):
+        calls.append(x.device.type)
+        return x @ params[0]
+
+    fn = p.wrap(program, kind="decode", bucket=8, model_id="cost")
+    w, x = torch.ones(16, 32), torch.ones(8, 16)
+    assert torch.equal(fn([w], x), x @ w)
+    fn([w], x)
+    (row,) = p.snapshot(include_cost=True)
+    assert row["flops"] == 2 * 8 * 16 * 32
+    assert row["bytes_accessed"] == 4 * (16 * 32 + 8 * 16 + 8 * 32)
+    assert row["bytes_accessed_total"] == 2 * row["bytes_accessed"]
+    assert calls == ["cpu", "cpu", "meta"]
+    assert p.snapshot(include_cost=True)[0]["flops"] == row["flops"]  # cached
+
+
+def test_device_memory_sampler_and_export_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    assert tprofiler.DeviceMemorySampler.sample_once() == []
+    sampler = tprofiler.DeviceMemorySampler(interval_s=0.01)
+    sampler.start()
+    deadline = time.monotonic() + 5
+    while sampler.age_s() is None and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert sampler.latest() == [] and sampler.age_s() is not None
+    sampler.stop()
+    exp = tmetrics.Exposition()
+    tprofiler.MEMORY._latest = [{"device": "0", "platform": "gpu", "bytes_in_use": 5,
+                                 "peak_bytes_in_use": 9, "bytes_limit": 80}]
+    try:
+        tprofiler.export_device_memory(exp)
+    finally:
+        tprofiler.MEMORY._latest = []
+    text = exp.render()
+    assert 'kind="peak_bytes_in_use"' in text and "pygrid_device_memory_bytes" in text
+
+
+@pytest.mark.cuda
+def test_device_memory_sampler_reads_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    x = torch.ones(1 << 20, device="cuda")
+    (row, *_) = tprofiler.DeviceMemorySampler.sample_once()
+    assert row["bytes_in_use"] >= x.numel() * 4 and row["bytes_limit"] > row["bytes_in_use"]
+
+
+_SECRET = {"token": "abc", "nested": {"Password": "p", "ok": [1, b"xyz", "a" * 3000]},
+           "request_key": 5, "obj": object, "val": 1.5}
+
+
+def test_recorder_redacts_and_dumps_like_the_jax_package(tmp_path, monkeypatch):
+    """One sequence of notes, a registered stats provider and a dump into
+    both packages' recorders: equal redaction, ring and dump payload
+    (timestamps and bus events aside); the rate limit and the off-switch
+    act alike."""
+    assert trecorder.redact(_SECRET) == jrecorder.redact(_SECRET)
+
+    class Provider:
+        def stats(self):
+            return {"queue_depth": 2, "token": "t"}
+
+    provider = Provider()
+    dumps = {}
+    for name, rec_mod, tel in (("jax", jrecorder, jtel), ("torch", trecorder, ttel)):
+        monkeypatch.setenv("PYGRID_FLIGHT_DIR", str(tmp_path / name))
+        rec = rec_mod.FlightRecorder()
+        rec.note("engine.fail_all", model="m", error="boom", failed=2)
+        rec.note("other", token="secret")
+        rec.register_stats_provider("serving", provider)
+        tel.incr("serving_requests_total", 2, outcome="error", model="m")
+        path = rec.dump("engine_fail_all", snapshot={"slots": [1], "jwt": "x"},
+                        error=RuntimeError("boom"))
+        assert rec.dump("engine_fail_all") is None  # rate-limited per reason
+        assert rec.should_dump("other_reason")
+        with open(path) as fh:
+            payload = json.load(fh)
+        payload.pop("events")
+        dumps[name] = _strip(payload)
+    assert dumps["torch"] == dumps["jax"]
+    assert dumps["torch"]["ring"][1]["token"] == "[redacted]"
+    assert dumps["torch"]["stats"]["serving"]["token"] == "[redacted]"
+    monkeypatch.setenv("PYGRID_FLIGHT", "off")
+    rec = trecorder.FlightRecorder()
+    rec.note("x")
+    assert rec.ring() == [] and rec.dump("y") is None
+    assert rec.dump("y", force=True) is not None
+
+
+def test_telemetry_package_reexports_profiler_and_recorder():
+    assert ttel.profiler is tprofiler and ttel.recorder is trecorder
+    assert callable(ttel.recorder.note) and callable(ttel.recorder.dump)
+    assert callable(ttel.recorder.register_stats_provider)
+    assert callable(ttel.profiler.wrap) and callable(ttel.profiler.programs_snapshot)
