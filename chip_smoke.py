@@ -89,6 +89,19 @@ and the script exits non-zero:
               |logit|); (e) the first prefill's and decode step's f32 logits
               against the CPU within 1e-4 and the PRNG's bits equal to the
               CPU's. The path launches none of the four kernels.
+15. grid    — four port nodes (alice, bob, charlie, dan), each on its own
+              loop thread on 127.0.0.1 with its tensors on the card, driven
+              only through the port's clients over HTTP and WebSocket: the
+              committed JAX-built CNN plan hosted on alice with JWT
+              authentication, 8 FLClients a cycle for 2 cycles over wire-v2
+              (each checkpoint bit-identical to old - f32(f64 mean)); the
+              CryptoNets forward over alice, bob and charlie with dan
+              dealing, bit-identical to phase datacentric's, its 16 ring
+              launches on the nodes counted; phase serving's bundle on alice
+              answering 8 concurrent HTTP generations equal to generate();
+              then /healthz, /metrics (strict Prometheus text),
+              /telemetry/slo and GET / on every node, and a clean stop (no
+              thread left). Host ms per step beside the in-process phases.
 
 Then it prints the kernels line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX
@@ -1290,7 +1303,7 @@ def _fl_max_err(a, b) -> float:
     return max(float((x.float().cpu() - y.float().cpu()).abs().max()) for x, y in zip(a, b))
 
 
-def phase_fl(device="cuda") -> None:
+def phase_fl(device="cuda") -> dict:
     """The port's model-centric FL cycle on the card at full width: a port
     FLController on a sqlite file hosts three processes — A, the committed
     JAX-built CNN training plan (its "list" variant); B, the same CNN plan
@@ -1463,8 +1476,9 @@ def phase_fl(device="cuda") -> None:
           f"A vs B on the same inputs (outputs and diffs) max abs {ab:.3e}; hand-written kernel "
           f"launches on this path: {sum(launches.values())} {launches}; cycle.aggregate "
           f"{agg.get('count', 0) - agg_before} runs, mean {agg.get('mean_s', 0) * 1e3:.3f} ms")
+    medians = {}
     for name in processes:
-        med = {step: statistics.median(v) for step, v in host_ms[name].items()}
+        med = medians[name] = {step: statistics.median(v) for step, v in host_ms[name].items()}
         print(f"[fl] {name} host ms per protocol step, median over {K * CYCLES} workers: "
               + ", ".join(f"{k} {v:.3f}" for k, v in med.items()))
     print("[fl] (a worker's train step is its plan's first call: for the torchscript variant "
@@ -1491,6 +1505,7 @@ def phase_fl(device="cuda") -> None:
               f"{ems:.4f} ms per step")
     mlp_list = serde.deserialize(processes["mnist-mlp-list"][1]).oplist
     print(f"[fl] ops per list-dialect run: CNN {count_ops(cnn_list)}, MLP {count_ops(mlp_list)}")
+    return medians
 
 
 
@@ -1517,24 +1532,25 @@ def _dc_grid(device, provider):
     return holders, dan
 
 
-def _dc_profile_line(tag, fn, n=3) -> None:
+def _dc_profile_line(tag, fn, n=3) -> float:
     """Host ms per call (median of ``n``), then one call under
     torch.profiler: its wall, device busy time, idle share and the ring
-    kernel's share of the busy time, printed."""
+    kernel's share of the busy time, printed. Returns the host ms."""
     host = statistics.median(_host_ms(fn)[1] for _ in range(n))
     wall_us, kernels = profiled(fn)
     busy_us = sum(e.self_device_time_total for e in kernels)
     head = f"[datacentric] {tag}: host {host:.3f} ms per forward (median of {n})"
     if busy_us == 0:
         print(f"{head}; device time not measured (the profiler saw none)")
-        return
+        return host
     ring_us = sum(e.self_device_time_total for e in kernels if "ring_matmul" in e.key)
     print(f"{head}; profiled call wall {wall_us / 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} "
           f"ms, idle share {1 - busy_us / wall_us:.4f}, ring kernel {ring_us / busy_us:.2%} of "
           f"the busy time")
+    return host
 
 
-def phase_datacentric(device="cuda") -> int:
+def phase_datacentric(device="cuda") -> tuple[int, np.ndarray, float]:
     """The data-centric plane on the card at full width: the committed
     JAX-built CryptoNets plan (examples/encrypted_inference.py's forward at
     x [256, 784], 784→392→10) as the reference's cross-node flow over four
@@ -1548,7 +1564,8 @@ def phase_datacentric(device="cuda") -> int:
     (c) The pointer plane: the float ops on alice against the CPU, a move
     to bob keeping a private tensor private, and the holders' stores
     written through to a sqlite file, recovered by new workers onto the
-    card and run again, bit for bit. Returns (a)'s launches."""
+    card and run again, bit for bit. Returns (a)'s launches, its first
+    decoded output and its host ms per forward."""
     import tempfile
     from pathlib import Path
 
@@ -1588,8 +1605,8 @@ def phase_datacentric(device="cuda") -> int:
           f"limit {MLP_ATOL:.3e}")
     check(counts["ring_matmul"] == 16,
           f"datacentric: {counts['ring_matmul']} ring launches a forward, expected 16")
-    _dc_profile_line("EncryptedModel.predict (pointers, messages, 4 workers)",
-                     lambda: model.predict(x))
+    predict_ms = _dc_profile_line("EncryptedModel.predict (pointers, messages, 4 workers)",
+                                  lambda: model.predict(x))
     class_provider = CryptoProvider(seed=5, device=device)
     class_in = [fix_prec(v).share(*PARTIES, crypto_provider=class_provider, generator=gw,
                                   device=device) for v in plain]
@@ -1724,7 +1741,7 @@ def phase_datacentric(device="cuda") -> int:
     print(f"[datacentric] {holders[0].id} holds {len(held)} objects, "
           f"{sum(v.numel() * v.element_size() for v in held) / 1e6:.3f} MB: {len(weights)} "
           f"weight shares and what the forwards left (nothing deletes intermediate shares)")
-    return counts["ring_matmul"]
+    return counts["ring_matmul"], first, predict_ms
 
 
 # --------------------------------------------------------------------------
@@ -1843,9 +1860,10 @@ def _serve_profile(tag, fn, top=0):
     return wall_us / 1e3, busy_us / 1e3, n
 
 
-def phase_serving(device="cuda") -> None:
+def phase_serving(device="cuda") -> float:
     """Generation serving at the flagship width (``full_config()``, random
-    weights from seed 0), through the port's entry points on ``device``."""
+    weights from seed 0), through the port's entry points on ``device``.
+    Returns the engine's tokens/s on the 8 concurrent requests."""
     from pygrid_tpu_torch import telemetry
     from pygrid_tpu_torch.models import decode, transformer
     from pygrid_tpu_torch.serving import EngineConfig, GenerationEngine
@@ -1950,6 +1968,7 @@ def phase_serving(device="cuda") -> None:
               f"steps, host ms per quantum (call + token fetch) median "
               f"{statistics.median(quanta):.3f}, range {min(quanta):.3f}-{max(quanta):.3f}; "
               f"launch only (profiler execute mean, by width) {launch} ms")
+        engine_tps = total / secs
         engine_wall, engine_busy, _ = _serve_profile("engine, the same 8 requests again",
                                                      lambda: _drive(engine, cases))
         led = engine.ledger()
@@ -2018,6 +2037,300 @@ def phase_serving(device="cuda") -> None:
     launches = {k: n for c in counters.values() for k, n in c.launch_counts().items()}
     check(not any(launches.values()), f"the serving path launched hand-written kernels: {launches}")
     print("[serving] the serving path launched none of the four kernels")
+    return engine_tps
+
+
+# --------------------------------------------------------------------------
+# phase 15: grid — four port nodes driven over HTTP and WebSocket
+# --------------------------------------------------------------------------
+
+GRID_SECRET = "grid-smoke-secret"
+GRID_NODES = ("alice", "bob", "charlie", "dan")
+
+
+def _grid_events() -> tuple[int, int]:
+    """(WS messages the nodes in this process have dispatched so far —
+    each observes ``node_event_seconds`` once — and the bytes of those
+    messages, ``wire_bytes_total{direction="in"}``)."""
+    from pygrid_tpu_torch import telemetry
+
+    messages = sum(h["count"] for (name, _), h in telemetry.histograms().items()
+                   if name == "node_event_seconds")
+    nbytes = sum(v for (name, labels), v in telemetry.counters().items()
+                 if name == "wire_bytes_total" and ("direction", "in") in labels)
+    return messages, int(nbytes)
+
+
+def _grid_fl(urls, fl_steps, device) -> None:
+    """Model-centric: the committed JAX-built CNN plan hosted on alice with
+    JWT authentication; 8 port FLClients a cycle for 2 cycles, each over a
+    wire-v2 socket (model by frame, the "list" variant by HTTP), training on
+    the card at batch 64; every checkpoint bit-identical to old − f32(f64
+    mean of the diffs)."""
+    from pathlib import Path
+
+    from pygrid_tpu_torch.client import FLClient, ModelCentricFLClient
+    from pygrid_tpu_torch.federated.auth import jwt_encode
+    from pygrid_tpu_torch.models import cnn
+    from pygrid_tpu_torch.plans.state import serialize_model_params
+    from pygrid_tpu_torch.plans.translators import run_oplist
+    from pygrid_tpu_torch.utils.codes import CYCLE
+
+    B, LR, K, CYCLES = 64, 0.005, 8, 2
+    name, version = "grid-cnn", "1.0"
+    fixture = Path(__file__).resolve().parent / "pygrid_tpu_torch" / "plans" / "fixtures"
+    params0 = cnn.init(torch.Generator().manual_seed(0), device=device)
+    lr_t = torch.tensor(LR, device=device)
+    mc = ModelCentricFLClient(urls["alice"], device=device)
+    try:
+        resp = mc.host_federated_training(
+            model=params0,
+            client_plans={"training_plan": (fixture / "cnn_training_plan.bin").read_bytes()},
+            client_config={"name": name, "version": version, "batch_size": B, "lr": LR,
+                           "max_updates": 1},
+            server_config={"min_workers": K, "max_workers": K, "min_diffs": K, "max_diffs": K,
+                           "num_cycles": CYCLES, "cycle_length": None,
+                           "authentication": {"secret": GRID_SECRET}})
+        check(resp.get("status") == "success", f"grid fl: hosting failed: {resp}")
+        bad = FLClient(urls["alice"], auth_token="not.a.token", device=device)
+        check("error" in bad.authenticate(name, version), "grid fl: a bad JWT was accepted")
+        bad.close()
+        token = jwt_encode({"sub": "grid-worker"}, secret=GRID_SECRET)
+        workers = [FLClient(urls["alice"], auth_token=token, device=device) for _ in range(K)]
+        steps = ("authenticate", "cycle", "model", "plan", "train", "report")
+        host_ms = {s: [] for s in steps}
+        try:
+            for cycle in range(CYCLES):
+                old = mc.retrieve_model(name, version)
+                diffs = []
+                for w, client in enumerate(workers):
+                    auth, ms = _host_ms(lambda: client.authenticate(name, version))
+                    host_ms["authenticate"].append(ms)
+                    check(auth.get("status") == "success", f"grid fl: authenticate: {auth}")
+                    wid = auth["worker_id"]
+                    cyc, ms = _host_ms(lambda: client.cycle_request(wid, name, version, 1.0,
+                                                                    1000.0, 1000.0))
+                    host_ms["cycle"].append(ms)
+                    check(cyc.get(CYCLE.STATUS) == CYCLE.ACCEPTED,
+                          f"grid fl: worker {w} rejected: {cyc}")
+                    key = cyc[CYCLE.KEY]
+                    params, ms = _host_ms(lambda: client.get_model(wid, key, cyc["model_id"]))
+                    host_ms["model"].append(ms)
+                    check(client.ws.wire_v2 and all(p.device.type == torch.device(device).type
+                                                    for p in params),
+                          "grid fl: the model did not come by wire-v2 frame onto the card")
+                    oplist, ms = _host_ms(lambda: client.get_plan(
+                        wid, key, cyc[CYCLE.PLANS]["training_plan"], receive_operations_as="list"))
+                    host_ms["plan"].append(ms)
+                    X, y = _fl_batch("cnn", cycle, w, device)
+                    out, ms = _host_ms(lambda: run_oplist(oplist, X, y, lr_t, *params,
+                                                          device=device))
+                    host_ms["train"].append(ms)
+                    check(_finite(*out), f"grid fl: worker {w}'s step is not finite")
+                    diff = [p - n for p, n in zip(params, out[2:])]
+                    rep, ms = _host_ms(lambda: client.report(wid, key,
+                                                             serialize_model_params(diff)))
+                    host_ms["report"].append(ms)
+                    check(not rep.get("error"), f"grid fl: report: {rep}")
+                    diffs.append(diff)
+                new = mc.retrieve_model(name, version)
+                for i, (o, g) in enumerate(zip(old, new)):
+                    mean64 = sum(d[i].double() for d in diffs) / K
+                    check(torch.equal(g, o - mean64.float()),
+                          f"grid fl: checkpoint tensor {i} after cycle {cycle} is not "
+                          "old - f32(f64 mean of the diffs)")
+                print(f"[grid] fl cycle {cycle}: {K} FLClients over wire-v2 "
+                      f"({workers[0].ws.wire_codec or 'no'} codec); retrieve-model == old - "
+                      f"f32(f64 mean of {K} diffs), bit for bit")
+            late = workers[0].cycle_request(workers[0].authenticate(name, version)["worker_id"],
+                                            name, version, 1.0, 1000.0, 1000.0)
+            check(late.get(CYCLE.STATUS) == CYCLE.REJECTED,
+                  f"grid fl: a cycle is still open after {CYCLES} cycles: {late}")
+        finally:
+            for client in workers:
+                client.close()
+    finally:
+        mc.close()
+    med = {s: statistics.median(v) for s, v in host_ms.items()}
+    print(f"[grid] fl host ms per protocol step over the wire, median over {K * CYCLES} "
+          "workers: " + ", ".join(f"{k} {v:.3f}" for k, v in med.items()))
+    print("[grid] fl in process (phase fl, the same plan): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in fl_steps.items()))
+
+
+def _grid_datacentric(urls, dc_first, dc_ms, device) -> int:
+    """Data-centric: the committed CryptoNets plan shared over alice, bob
+    and charlie with dan dealing, all through DataCentricFLClients; the
+    decoded output bit for bit phase datacentric's (a). Returns the ring
+    kernel's launches on the nodes in that forward."""
+    from pathlib import Path
+
+    from pygrid_tpu_torch import serde
+    from pygrid_tpu_torch.client import DataCentricFLClient
+    from pygrid_tpu_torch.smpc import (EncryptedModel, FixedPointEncoder, RemoteCryptoProvider,
+                                       fix_prec_share_to_nodes)
+
+    fixture = Path(__file__).resolve().parent / "pygrid_tpu_torch" / "plans" / "fixtures"
+    plan = serde.deserialize((fixture / "cryptonets_plan.bin").read_bytes(), device=device)
+    x, w1, b1, w2, b2 = mlp_plaintext()
+    weights = [w1, b1[0], w2, b2[0]]
+    holders = [DataCentricFLClient(urls[n], device=device) for n in PARTIES]
+    dan = DataCentricFLClient(urls["dan"], device=device)
+    try:
+        for h in holders:
+            dan.connect_nodes(h)
+        provider = RemoteCryptoProvider(dan)
+        gw = torch.Generator(device=device).manual_seed(DC_SEED)
+        shared = [fix_prec_share_to_nodes(w, holders, crypto_provider=dan, generator=gw,
+                                          device=device) for w in weights]
+        model = EncryptedModel(plan, shared, holders, provider, FixedPointEncoder(),
+                               device=device)
+        events0 = _grid_events()
+        got, counts, secs = counted(
+            lambda: model.predict(x, generator=torch.Generator(device=device).manual_seed(1)),
+            "ring")
+        messages, nbytes = (b - a for a, b in zip(events0, _grid_events()))
+        check(np.array_equal(got, dc_first), "grid datacentric: the forward over the nodes "
+              "differs from phase datacentric's in-process forward")
+        check(counts["ring_matmul"] == 16, f"grid datacentric: {counts['ring_matmul']} ring "
+              "launches on the nodes, expected 16")
+        host = [_host_ms(lambda: model.predict(x))[1] for _ in range(3)]
+        print(f"[grid] datacentric: EncryptedModel.predict over 4 nodes (alice, bob, charlie "
+              f"hold, dan deals) bit-identical to phase datacentric's; {counts} on the nodes; "
+              f"first call {secs * 1e3:.3f} ms, {messages} WS messages dispatched by the nodes "
+              f"carrying {nbytes / 1e6:.3f} MB; "
+              f"host ms per forward {statistics.median(host):.3f} (median of 3) against "
+              f"{dc_ms:.3f} in process (phase datacentric; PR 8 measured 22.139)")
+        return counts["ring_matmul"]
+    finally:
+        dan.close()
+        for h in holders:
+            h.close()
+
+
+def _grid_serving(urls, serve_tps, device) -> None:
+    """Serving: phase serving's flagship bundle (seed 0) hosted on alice;
+    8 concurrent POST /data-centric/run-generation, each greedy result held
+    to generate() as phase serving holds the engine."""
+    import base64
+    import threading
+
+    from pygrid_tpu_torch import serde
+    from pygrid_tpu_torch.client import DataCentricFLClient
+    from pygrid_tpu_torch.models import decode, transformer
+    from pygrid_tpu_torch.web import client as http
+
+    cfg = full_config()
+    params = transformer.init(cfg, generator=torch.Generator().manual_seed(0), device=device)
+    cases = _serve_cases(cfg, np.random.RandomState(7))
+    refs = [decode.generate(params, torch.from_numpy(p).long().to(device), n, cfg).cpu().numpy()
+            for p, n in cases]
+    client = DataCentricFLClient(urls["alice"], device=device)
+    try:
+        hosted, ms = _host_ms(lambda: client.serve_model(decode.bundle(cfg, params), "flagship",
+                                                         allow_remote_inference=True))
+        check(hosted.get("success"), f"grid serving: hosting failed: {hosted}")
+        url = urls["alice"] + "/data-centric/run-generation"
+        headers = {"token": client._auth_token}
+
+        def post(prompt, n_new):
+            return http.post(url, headers=headers, timeout=600, json={
+                "model_id": "flagship", "n_new": int(n_new), "temperature": 0.0,
+                "data": base64.b64encode(serde.serialize(np.asarray(prompt))).decode()})
+
+        warm = post(cases[0][0][:, :2], 2)
+        check(warm.status_code == 200, f"grid serving: warm-up answered {warm.status_code}")
+        bad = http.post(url, headers=headers, timeout=60, json={"model_id": "flagship",
+                        "n_new": True, "data": ""})
+        check(bad.status_code == 400, f"grid serving: a bad request answered {bad.status_code}")
+        outs = [None] * len(cases)
+
+        def go(i):
+            outs[i] = post(*cases[i])
+
+        threads = [threading.Thread(target=go, args=(i,)) for i in range(len(cases))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        secs = time.perf_counter() - t0
+        for i, r in enumerate(outs):
+            check(r is not None and r.status_code == 200,
+                  f"grid serving: request {i} answered {getattr(r, 'status_code', None)}")
+        toks = [np.asarray(r.json()["tokens"]) for r in outs]
+        div = _serve_match("grid", params, cfg, cases, toks, refs, device)
+        total = sum(n for _, n in cases)
+        print(f"[grid] serving: bundle hosted over WS in {ms:.1f} ms; 8 concurrent HTTP "
+              f"generations, {total} tokens in {secs * 1e3:.1f} ms = {total / secs:.1f} tokens/s "
+              f"over HTTP against {serve_tps:.1f} in process (phase serving's engine); "
+              f"{len(div)} of 8 diverge from generate() (near ties)")
+    finally:
+        client.close()
+
+
+def phase_grid(fl_steps, dc_first, dc_ms, serve_tps, device="cuda") -> int:
+    """Four port nodes (alice, bob, charlie, dan), each an app of
+    ``pygrid_tpu_torch.node`` on its own loop thread on 127.0.0.1 with its
+    tensors on ``device``, driven only through the port's clients over HTTP
+    and WebSocket: the model-centric cycle, encrypted inference and
+    generation serving, then every node's health routes and a clean stop.
+    Returns the ring kernel's launches on the nodes."""
+    import dataclasses
+    import threading
+
+    from pygrid_tpu_torch import web
+    from pygrid_tpu_torch.federated import tasks
+    from pygrid_tpu_torch.node import create_app
+    from pygrid_tpu_torch.smpc import CryptoProvider
+    from pygrid_tpu_torch.telemetry import promtext
+    from pygrid_tpu_torch.web import client as http
+
+    before = {t.ident for t in threading.enumerate()}
+    tasks.set_sync(True)  # the K-th report aggregates before it answers
+    servers = {}
+    try:
+        for name in GRID_NODES:
+            app = create_app(name, device=device)
+            node = app["node"]
+            if name == "dan":  # deals with phase datacentric's seed: its triples repeat
+                node.crypto_provider = node.local_worker.crypto_provider = CryptoProvider(
+                    id="dan-crypto", seed=DC_SEED, device=device)
+            # an f32 KV cache, as phase serving pins it, to hold the engine
+            # against generate()'s f32 cache
+            serving = node.serving
+            serving.config = dataclasses.replace(serving.config, cache_dtype=torch.float32)
+            servers[name] = web.BackgroundServer(app).start()
+        urls = {n: s.url for n, s in servers.items()}
+        print(f"[grid] {card_line()}; nodes {', '.join(f'{n} {u}' for n, u in urls.items())} "
+              f"on {device}")
+        _grid_fl(urls, fl_steps, device)
+        launches = _grid_datacentric(urls, dc_first, dc_ms, device)
+        _grid_serving(urls, serve_tps, device)
+        for name, url in urls.items():
+            for path, headers in (("/healthz", None), ("/metrics", None),
+                                  ("/telemetry/slo", None), ("/", {"Accept": "text/html"}),
+                                  ("/", None)):
+                r = http.get(url + path, headers=headers, timeout=30)
+                check(r.status_code == 200, f"grid: {name} {path} answered {r.status_code}")
+                if path == "/metrics":
+                    families = promtext.parse(r.text)
+        print(f"[grid] every node answered 200 on /healthz, /metrics (strict Prometheus text, "
+              f"{len(families)} families on dan), /telemetry/slo and GET /")
+    finally:
+        for server in servers.values():
+            server.stop()
+    deadline = time.time() + 10
+    while True:
+        left = [t.name for t in threading.enumerate()
+                if t.ident not in before and not t.name.startswith("pygrid-ws")]
+        if not left or time.time() > deadline:
+            break
+        time.sleep(0.1)
+    check(not left, f"grid: threads left after the nodes stopped: {left}")
+    print("[grid] the 4 nodes stopped; no thread of theirs is left (the WS executor's pool "
+          "is the process's)")
+    return launches
 
 
 def main() -> int:
@@ -2041,9 +2354,11 @@ def main() -> int:
     smpc_launches = phase_smpc_rounds()
     mlp_launches, mlp_out = phase_encrypted_mlp()
     phase_wire(params, mlp_out)
-    phase_fl()
-    launches["ring_matmul"] = smpc_launches + mlp_launches + phase_datacentric()
-    phase_serving()
+    fl_steps = phase_fl()
+    dc_launches, dc_first, dc_ms = phase_datacentric()
+    serve_tps = phase_serving()
+    grid_launches = phase_grid(fl_steps["mnist-cnn-list"], dc_first, dc_ms, serve_tps)
+    launches["ring_matmul"] = smpc_launches + mlp_launches + dc_launches + grid_launches
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -13,10 +13,12 @@ with its forward, dK/dV and dQ kernels — and the SMPC compute plane
 node's wire and storage plane (``serde``, ``native``, ``storage``), the
 model-centric FL cycle (``federated``, ``plans``, ``telemetry``), the
 data-centric plane (``runtime``, ``smpc.remote``, ``smpc.encrypted_model``,
-``datacentric``), and generation serving (``models.decode``, ``serving``,
-``utils.prng``, ``telemetry.profiler``/``recorder``). Entry
-points take ``device`` and default to ``"cuda"``; without a GPU they raise
-unless the caller passes ``device="cpu"``.
+``datacentric``), generation serving (``models.decode``, ``serving``,
+``utils.prng``, ``telemetry.profiler``/``recorder``), and the Node app with
+its clients (``node``, ``client``, ``users``, ``telemetry.slo``/``promtext``)
+over the port's own HTTP and WebSocket layer (``web``). Entry points take
+``device`` and default to ``"cuda"``; without a GPU they raise unless the
+caller passes ``device="cpu"``.
 """
 
 from pygrid_tpu_torch.device import resolve

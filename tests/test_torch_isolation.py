@@ -1,7 +1,8 @@
 """The port stands alone: pygrid_tpu_torch imports neither ``jax`` nor
 anything of ``pygrid_tpu``, nor the packages the card's machine lacks
-(``msgpack``, ``ml_dtypes``, ``orbax``; ``websockets`` and ``requests`` only
-lazily), and its entry points never move to the CPU unless asked."""
+(``msgpack``, ``ml_dtypes``, ``orbax``, ``aiohttp``; ``websockets`` and
+``requests`` only lazily, and the node's apps and clients not at all), and
+its entry points never move to the CPU unless asked."""
 
 import ast
 import os
@@ -33,9 +34,13 @@ def _modules() -> list[str]:
 
 
 #: never imported by the port: the reference, and what the card's machine lacks
-BANNED = ("jax", "jaxlib", "pygrid_tpu", "msgpack", "ml_dtypes", "orbax")
+BANNED = ("jax", "jaxlib", "pygrid_tpu", "msgpack", "ml_dtypes", "orbax", "aiohttp")
 #: imported only inside a function, where it is optional
 LAZY = ("websockets", "requests")
+#: the node's apps, clients and web layer speak HTTP through the port's own
+#: ``web`` package: they never import ``requests``, not even in a function
+NO_REQUESTS = [PKG / d for d in ("web", "users", "client", "node")] + [
+    PKG / "telemetry" / f for f in ("__init__.py", "promtext.py", "slo.py")]
 
 
 def _banned(name: str) -> bool:
@@ -127,6 +132,19 @@ _BLOCKED_IMPORT = textwrap.dedent(
     finally:
         engine.close()
     assert (got == decode.generate(tparams, torch.tensor([[3, 5, 2]]), 6, cfg).numpy()).all()
+    # the node on the web layer, driven by the port's clients
+    from pygrid_tpu_torch import web
+    from pygrid_tpu_torch.client import DataCentricFLClient
+    from pygrid_tpu_torch.node import create_app
+    from pygrid_tpu_torch.web import client as http
+    server = web.BackgroundServer(create_app("alice", device="cpu")).start()
+    try:
+        client = DataCentricFLClient(server.url, device="cpu")
+        assert client.ping() and client.send(np.arange(3.0)).get().tolist() == [0.0, 1.0, 2.0]
+        client.close()
+        assert http.get(server.url + "/healthz", timeout=10).json() == {{"status": "ok"}}
+    finally:
+        server.stop()
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("ok", len({_modules()!r}))
@@ -171,8 +189,9 @@ def test_every_module_imports_with_jax_and_pygrid_tpu_blocked(runs):
     ``msgpack``, ``ml_dtypes``, ``orbax``, ``websockets`` and ``requests``
     imports every module of the port and chip_smoke.py, and runs the port's
     serde, frame, native and model-params round trips, a committed JAX-built
-    plan, an encrypted forward and a speculative paged engine, as the
-    card's machine would."""
+    plan, an encrypted forward, a speculative paged engine and a node
+    answering the port's clients over its own HTTP and WebSocket layer, as
+    the card's machine would (no ``aiohttp``, no ``requests``)."""
     rc, stdout, stderr = _wait(runs["blocked_import"])
     assert rc == 0, stderr
     assert stdout.startswith("ok")
@@ -265,3 +284,24 @@ def test_chip_smoke_fails_without_a_gpu_and_outside_the_repo(runs):
         rc, stdout, _ = _wait(runs[name])
         assert rc != 0, name
         assert '"ok"' not in stdout, name
+
+
+def _imported_names(path: Path) -> list[tuple[int, str]]:
+    found = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            found += [(node.lineno, a.name) for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            found.append((node.lineno, node.module or ""))
+    return found
+
+
+@pytest.mark.parametrize("path", sorted(p for base in NO_REQUESTS
+                                        for p in (base.rglob("*.py") if base.is_dir() else [base])),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_node_apps_and_clients_never_import_requests(path):
+    """``requests`` appears in no import of the web layer, users/, client/,
+    node/ or the node's telemetry modules — at module level or inside a
+    function."""
+    bad = [(line, n) for line, n in _imported_names(path) if n.split(".")[0] == "requests"]
+    assert not bad, f"{path.name} imports requests at {bad}"

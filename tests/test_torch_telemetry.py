@@ -2,7 +2,9 @@
 package's: the same sequence of calls into both packages' bus, trace and
 timeline gives equal counters, histograms, events, trace header bytes and
 timeline snapshots, timestamps and random span ids aside; the serving
-path's program profiler and flight recorder give equal rows and dumps."""
+path's program profiler and flight recorder give equal rows and dumps; the
+node's strict Prometheus parser, burn-rate SLO engine and HTTP middleware
+answer as the JAX package's do."""
 
 import datetime as dt
 import json
@@ -344,3 +346,141 @@ def test_telemetry_package_reexports_profiler_and_recorder():
     assert callable(ttel.recorder.note) and callable(ttel.recorder.dump)
     assert callable(ttel.recorder.register_stats_provider)
     assert callable(ttel.profiler.wrap) and callable(ttel.profiler.programs_snapshot)
+
+
+# --------------------------------------------------------------------------
+# promtext, slo and the HTTP middleware (the node's observability)
+# --------------------------------------------------------------------------
+
+_BAD_EXPOSITIONS = [
+    "# HELP a x\n# HELP a y\na 1\n",                       # duplicate HELP
+    "# TYPE a counter\n# TYPE a gauge\na 1\n",             # duplicate TYPE
+    'a{l="x} 1\n',                                          # unterminated label value
+    "a 1\nb 2\na 3\n",                                      # interleaved family groups
+    "# TYPE h histogram\nh_bucket{le=\"1\"} 5\nh_bucket{le=\"+Inf\"} 3\nh_count 3\nh_sum 1\n",
+    "a one\n",                                              # not a number
+]
+
+
+def test_promtext_parses_the_export_as_the_jax_package_does():
+    from pygrid_tpu.telemetry import promtext as jprom
+    from pygrid_tpu_torch.telemetry import promtext as tprom
+
+    _feed_bus(ttel)
+    exp = tmetrics.Exposition()
+    ttel.export(exp)
+    text = exp.render()
+    got, want = tprom.parse(text), jprom.parse(text)
+    assert sorted(got) == sorted(want) and len(got) > 4
+    for name in want:
+        assert (got[name].type, got[name].samples) == (want[name].type, want[name].samples)
+
+
+@pytest.mark.parametrize("text", _BAD_EXPOSITIONS)
+def test_promtext_refuses_what_the_jax_package_refuses(text):
+    from pygrid_tpu.telemetry import promtext as jprom
+    from pygrid_tpu_torch.telemetry import promtext as tprom
+
+    with pytest.raises(ValueError):
+        jprom.parse(text)
+    with pytest.raises(ValueError):
+        tprom.parse(text)
+
+
+def test_slo_engine_evaluates_like_the_jax_package():
+    """The node's objectives over two buses fed alike: every row (status,
+    compliance, burns) equal at each evaluation, and the exported gauges
+    parse strictly."""
+    from pygrid_tpu.telemetry import slo as jslo
+    from pygrid_tpu.telemetry.bus import TelemetryBus as JBus
+    from pygrid_tpu_torch.telemetry import promtext as tprom
+    from pygrid_tpu_torch.telemetry import slo as tslo
+    from pygrid_tpu_torch.telemetry.bus import TelemetryBus as TBus
+
+    buses = {"jax": JBus(), "torch": TBus()}
+    engines = {"jax": jslo.SLOEngine(jslo.node_objectives(), windows=(60.0, 600.0),
+                                     source=buses["jax"]),
+               "torch": tslo.SLOEngine(tslo.node_objectives(), windows=(60.0, 600.0),
+                                       source=buses["torch"])}
+    rng = np.random.RandomState(4)
+    rows = {k: [] for k in buses}
+    for step, now in enumerate((0.0, 30.0, 90.0, 400.0)):
+        values = 10 ** rng.uniform(-4, 1, size=40)
+        for k, bus in buses.items():
+            for v in values:
+                bus.observe("serving_ttft_seconds", float(v), model="m")
+                bus.observe("node_event_seconds", float(v) / 10, event="model-centric/report")
+            rows[k].append(engines[k].evaluate(now=now))
+    assert rows["torch"] == rows["jax"]
+    assert {r["status"] for r in rows["torch"][-1]} - {"no_data"}
+    exp = tmetrics.Exposition()
+    engines["torch"].export(exp)
+    assert tprom.parse(exp.render())
+
+
+def test_http_middleware_labels_routes_and_codes_as_the_jax_package():
+    """The same requests through the JAX package's aiohttp middleware and
+    the port's over its own server: equal ``http_requests_total`` counters
+    (route = canonical resource, "unmatched" for 404 and 405) and request
+    histogram counts."""
+    from aiohttp import web as aioweb
+
+    from pygrid_tpu_torch import web
+    from pygrid_tpu_torch.web import client as http
+    from test_torch_web import AioServer
+
+    def requests_to(base):
+        for method, path, body in (("GET", "/items/1", None), ("GET", "/items/2", None),
+                                   ("POST", "/items/3", b"x"), ("GET", "/nope", None),
+                                   ("POST", "/big", b"y" * 2048), ("GET", "/boom", None)):
+            http.request(method, base + path, data=body, timeout=10)
+
+    async def item(request):
+        return web.json_response({"id": request.match_info["id"]})
+
+    async def big(request):
+        await request.read()
+        return web.json_response({})
+
+    async def boom(request):
+        raise RuntimeError("handler defect")
+
+    port_app = web.Application(middlewares=[ttel.http_middleware()], client_max_size=1024)
+    port_app.router.add_get("/items/{id}", item)
+    port_app.router.add_post("/big", big)
+    port_app.router.add_get("/boom", boom)
+
+    async def aitem(request):
+        return aioweb.json_response({"id": request.match_info["id"]})
+
+    async def abig(request):
+        await request.read()
+        return aioweb.json_response({})
+
+    async def aboom(request):
+        raise RuntimeError("handler defect")
+
+    jax_app = aioweb.Application(middlewares=[jtel.http_middleware()], client_max_size=1024)
+    jax_app.router.add_get("/items/{id}", aitem)
+    jax_app.router.add_post("/big", abig)
+    jax_app.router.add_get("/boom", aboom)
+
+    srv = web.BackgroundServer(port_app).start()
+    try:
+        requests_to(srv.url)
+    finally:
+        srv.stop()
+    with AioServer(jax_app) as base:
+        requests_to(base)
+
+    def http_counters(tel):
+        return {k: v for k, v in tel.counters().items() if k[0] == "http_requests_total"}
+
+    got, want = http_counters(ttel), http_counters(jtel)
+    assert got == want
+    assert {dict(labels)["route"] for _, labels in got} == {"/items/{id}", "unmatched", "/big",
+                                                            "/boom"}
+    assert {dict(labels)["code"] for _, labels in got} == {"200", "404", "405", "413", "500"}
+    counts = {tel: {k: h["count"] for k, h in tel.histograms().items()
+                    if k[0] == "http_request_seconds"} for tel in (ttel, jtel)}
+    assert counts[ttel] == counts[jtel]
