@@ -63,7 +63,11 @@ and the script exits non-zero:
               the CPU, A against B, every checkpoint against the f64 mean
               on the card, no cycle left open, no hand-written kernel
               launched; host ms per protocol step, the step's device time
-              three ways and the list's op count;
+              three ways and the list's op count; then the f32 pin: the CNN
+              list step with TF32 forced on (the error printed), and with
+              both TF32 flags switched on beforehand through run_oplist,
+              whose resolve() pins them off, against the CPU at the
+              dialect tolerance;
 13. datacentric — the data-centric plane: the committed JAX-built
               CryptoNets plan (784→392→10, batch 256) run by EncryptedModel
               over four in-process workers on the card (alice, bob, charlie
@@ -100,8 +104,19 @@ and the script exits non-zero:
               launches on the nodes counted; phase serving's bundle on alice
               answering 8 concurrent HTTP generations equal to generate();
               then /healthz, /metrics (strict Prometheus text),
-              /telemetry/slo and GET / on every node, and a clean stop (no
-              thread left). Host ms per step beside the in-process phases.
+              /telemetry/slo and GET / on every node. Then [network]: a port
+              network on its own loop thread (monitor every 0.5 s) that the
+              four nodes join through join_network: after a monitor sweep
+              all four online with a ping, its health routes 200;
+              EncryptedModel.discover of the CryptoNets plan published over
+              alice, bob and charlie (dan dealing from phase datacentric's
+              seed), whose predict is bit-identical to phase datacentric's
+              with 16 ring launches counted; PublicGridNetwork.search
+              bringing back a pointer to a tensor on bob; one cycle of 8
+              threaded run_worker on the CNN plan, half through a
+              sub-aggregator the network placed, the checkpoint old -
+              f32(f64 mean) bit for bit. A clean stop (no thread left).
+              Host ms per step beside the in-process phases.
 
 Then it prints the kernels line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX
@@ -1279,6 +1294,7 @@ def phase_wire(params, mlp_out) -> None:
 # f32 with TF32 off, the op-list interpreter against the direct step, the
 # torch.export program and the same list on the CPU
 FL_TOL = (2e-4, 2e-5)
+LR_FL = 0.005  # phase fl's learning rate
 
 
 def _fl_batch(kind, cycle, worker, device, B=64):
@@ -1301,6 +1317,14 @@ def _fl_close(a, b) -> bool:
 
 def _fl_max_err(a, b) -> float:
     return max(float((x.float().cpu() - y.float().cpu()).abs().max()) for x, y in zip(a, b))
+
+
+def _fl_tol_share(a, b) -> float:
+    """The largest |a - b| / (atol + rtol |b|) over every element: the share
+    of the dialect's tolerance the worst element uses (within it: <= 1)."""
+    rtol, atol = FL_TOL
+    return max(float(((x.double().cpu() - y.double().cpu()).abs()
+                      / (atol + rtol * y.double().cpu().abs())).max()) for x, y in zip(a, b))
 
 
 def phase_fl(device="cuda") -> dict:
@@ -1332,7 +1356,7 @@ def phase_fl(device="cuda") -> dict:
     from pygrid_tpu_torch.utils import profiling
     from pygrid_tpu_torch.utils.codes import CYCLE
 
-    B, LR, K, CYCLES = 64, 0.005, 8, 2
+    B, LR, K, CYCLES = 64, LR_FL, 8, 2
     fixtures = Path(__file__).resolve().parent / "pygrid_tpu_torch" / "plans" / "fixtures"
     cnn_params = cnn.init(torch.Generator().manual_seed(0), device=device)
     mlp_params = mlp.init((784, 392, 10), generator=torch.Generator().manual_seed(1),
@@ -1505,7 +1529,59 @@ def phase_fl(device="cuda") -> dict:
               f"{ems:.4f} ms per step")
     mlp_list = serde.deserialize(processes["mnist-mlp-list"][1]).oplist
     print(f"[fl] ops per list-dialect run: CNN {count_ops(cnn_list)}, MLP {count_ops(mlp_list)}")
+    check_f32_pin(cnn_list, X, y, cnn_params, device)
     return medians
+
+
+def _tf32_flags() -> tuple[bool, bool]:
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+def _set_tf32(cudnn: bool, matmul: bool) -> None:
+    torch.backends.cudnn.allow_tf32 = cudnn
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+def check_f32_pin(oplist, X, y, params, device) -> None:
+    """The port computes f32 as f32 whatever the caller set: with both TF32
+    flags switched on beforehand, phase fl's CNN list step through the
+    port's entry point (``run_oplist``, whose ``resolve`` pins f32) agrees
+    with the same step on the CPU at the dialect's tolerance. First, the
+    size of the fault the pin removes: the same step with TF32 forced on
+    for that one call (the pin bypassed), against the CPU."""
+    from pygrid_tpu_torch import device as port_device
+    from pygrid_tpu_torch.plans.translators import run_oplist
+
+    cpu = run_oplist(oplist, X.cpu(), y.cpu(), LR_FL, *[p.cpu() for p in params], device="cpu")
+    saved = _tf32_flags()
+    pin = port_device.pin_f32
+    try:
+        port_device.pin_f32 = lambda: None  # TF32 stays on for this one call
+        _set_tf32(True, True)
+        unpinned = run_oplist(oplist, X, y, LR_FL, *params, device=device)
+        torch.cuda.synchronize()
+        check(_tf32_flags() == (True, True), "fl f32 pin: the bypass did not keep TF32 on")
+    finally:
+        port_device.pin_f32 = pin
+        _set_tf32(*saved)
+    print(f"[fl] f32 pin: the CNN list step with cuDNN and cuBLAS TF32 forced on (pin bypassed) "
+          f"differs from the CPU by {_fl_max_err(unpinned, cpu):.3e} (max abs; dialect tolerance "
+          f"rtol {FL_TOL[0]:g} / atol {FL_TOL[1]:g}: within it: {_fl_close(unpinned, cpu)}, "
+          f"the worst element at {_fl_tol_share(unpinned, cpu):.4f} of its bound)")
+    try:
+        _set_tf32(True, True)  # the worst a caller's script can do
+        pinned = run_oplist(oplist, X, y, LR_FL, *params, device=device)
+        torch.cuda.synchronize()
+        after = _tf32_flags()
+    finally:
+        _set_tf32(*saved)
+    check(after == (False, False), f"fl f32 pin: resolve left the TF32 flags at {after}")
+    check(_fl_close(pinned, cpu), f"fl f32 pin: with TF32 switched on beforehand, the CNN list "
+          f"step differs from the CPU by {_fl_max_err(pinned, cpu):.3e}")
+    print(f"[fl] f32 pin: with both TF32 flags switched on beforehand, run_oplist(device="
+          f"{str(device)!r}) pinned them off and the CNN list step agrees with the CPU at the "
+          f"dialect tolerance (max abs {_fl_max_err(pinned, cpu):.3e}, the worst element at "
+          f"{_fl_tol_share(pinned, cpu):.4f} of its bound)")
 
 
 
@@ -2158,11 +2234,12 @@ def _grid_fl(urls, fl_steps, device) -> None:
           + ", ".join(f"{k} {v:.3f}" for k, v in fl_steps.items()))
 
 
-def _grid_datacentric(urls, dc_first, dc_ms, device) -> int:
+def _grid_datacentric(urls, dc_first, dc_ms, device) -> tuple[int, float]:
     """Data-centric: the committed CryptoNets plan shared over alice, bob
     and charlie with dan dealing, all through DataCentricFLClients; the
     decoded output bit for bit phase datacentric's (a). Returns the ring
-    kernel's launches on the nodes in that forward."""
+    kernel's launches on the nodes in that forward and the host ms per
+    forward."""
     from pathlib import Path
 
     from pygrid_tpu_torch import serde
@@ -2195,13 +2272,14 @@ def _grid_datacentric(urls, dc_first, dc_ms, device) -> int:
         check(counts["ring_matmul"] == 16, f"grid datacentric: {counts['ring_matmul']} ring "
               "launches on the nodes, expected 16")
         host = [_host_ms(lambda: model.predict(x))[1] for _ in range(3)]
+        host_ms = statistics.median(host)
         print(f"[grid] datacentric: EncryptedModel.predict over 4 nodes (alice, bob, charlie "
               f"hold, dan deals) bit-identical to phase datacentric's; {counts} on the nodes; "
               f"first call {secs * 1e3:.3f} ms, {messages} WS messages dispatched by the nodes "
               f"carrying {nbytes / 1e6:.3f} MB; "
-              f"host ms per forward {statistics.median(host):.3f} (median of 3) against "
+              f"host ms per forward {host_ms:.3f} (median of 3) against "
               f"{dc_ms:.3f} in process (phase datacentric; PR 8 measured 22.139)")
-        return counts["ring_matmul"]
+        return counts["ring_matmul"], host_ms
     finally:
         dan.close()
         for h in holders:
@@ -2269,13 +2347,293 @@ def _grid_serving(urls, serve_tps, device) -> None:
         client.close()
 
 
+def _grid_monitor(network, urls) -> float:
+    """The nodes join the network through the node's join_network (on each
+    node's loop, as the CLI joins at startup); after the monitor's first
+    sweep /nodes-status shows all four online with a ping. Then one sweep
+    of the four HTTP polls, run on the network's loop as monitor_loop runs
+    it, timed. Returns its host ms."""
+    import asyncio
+
+    from pygrid_tpu_torch.network.monitor import poll_node
+    from pygrid_tpu_torch.web import client as http
+
+    ctx = network.app["network"]
+    deadline = time.monotonic() + 60
+    while True:
+        status = http.get(network.url + "/nodes-status", timeout=30).json()
+        online = {n: s for n, s in status.items()
+                  if s["status"] == "online" and s["ping_ms"] is not None}
+        if set(online) == set(urls) or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    check(set(online) == set(urls) and all(status[n]["address"] == u for n, u in urls.items()),
+          f"grid network: nodes not all online after a monitor sweep: {status}")
+
+    async def sweep():
+        for node_id, address in ctx.manager.connected_nodes().items():
+            await poll_node(ctx.proxy(node_id, address))
+
+    sweeps = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        asyncio.run_coroutine_threadsafe(sweep(), network.loop).result(60)
+        sweeps.append((time.perf_counter() - t0) * 1e3)
+    check(all(p.status == "online" for p in ctx.proxies.values()),
+          "grid network: a node went offline in a timed sweep")
+    print(f"[network] {len(online)} nodes online after the first monitor sweep (ping_ms "
+          + ", ".join(f"{n} {s['ping_ms']:.3f}" for n, s in sorted(online.items()))
+          + f"); one sweep of {len(urls)} HTTP polls (3 GETs each): "
+          f"{statistics.median(sweeps):.3f} ms host (median of 5)")
+    return statistics.median(sweeps)
+
+
+def _grid_network_health(url) -> None:
+    from pygrid_tpu_torch.telemetry import promtext
+    from pygrid_tpu_torch.web import client as http
+
+    for path, params in (("/healthz", None), ("/healthz", {"deep": "1"}), ("/metrics", None),
+                         ("/telemetry/slo", None)):
+        r = http.get(url + path, params=params, timeout=30)
+        check(r.status_code == 200, f"grid network: {path} {params or ''} answered "
+              f"{r.status_code}: {r.text[:300]}")
+        if path == "/metrics":
+            families = promtext.parse(r.text)
+            check('pygrid_grid_nodes{status="online"} 4' in r.text,
+                  "grid network: /metrics does not count 4 online nodes")
+    print(f"[network] /healthz (shallow and deep), /metrics (strict Prometheus text, "
+          f"{len(families)} families, 4 nodes online) and /telemetry/slo answered 200")
+
+
+def _grid_discover(network, servers, urls, dc_first, grid_dc_ms, device) -> tuple:
+    """The model owner publishes the committed CryptoNets plan over alice,
+    bob and charlie (weight shares from phase grid's seed) with dan
+    dealing from a fresh provider of phase datacentric's seed; a data
+    scientist then finds it with EncryptedModel.discover and predicts on
+    phase datacentric's input with its input seed: bit-identical to phase
+    datacentric's output, 16 ring launches. Returns the launches and the
+    host ms of discover, of a predict after it and of the 4-node fan-out."""
+    from pathlib import Path
+
+    from pygrid_tpu_torch import serde
+    from pygrid_tpu_torch.client import DataCentricFLClient
+    from pygrid_tpu_torch.smpc import CryptoProvider, EncryptedModel, publish_encrypted_model
+    from pygrid_tpu_torch.web import client as http
+
+    # the dealer repeats phase datacentric's triples: installed before any
+    # client of this block logs in (a session takes the provider at login)
+    dan = servers["dan"].app["node"]
+    dan.crypto_provider = dan.local_worker.crypto_provider = CryptoProvider(
+        id="dan-crypto", seed=DC_SEED, device=device)
+    fixture = Path(__file__).resolve().parent / "pygrid_tpu_torch" / "plans" / "fixtures"
+    plan = serde.deserialize((fixture / "cryptonets_plan.bin").read_bytes(), device=device)
+    x, w1, b1, w2, b2 = mlp_plaintext()
+    owners = {n: DataCentricFLClient(urls[n], device=device) for n in GRID_NODES}
+    try:
+        _, publish_ms = _host_ms(lambda: publish_encrypted_model(
+            plan, "cryptonets", owners["alice"], [owners[n] for n in PARTIES], owners["dan"],
+            [w1, b1[0], w2, b2[0]], generator=torch.Generator(device=device).manual_seed(DC_SEED),
+            device=device))
+    finally:
+        for c in owners.values():
+            c.close()
+    fanout = []
+    for _ in range(5):
+        r, ms = _host_ms(lambda: http.post(network.url + "/search-encrypted-model",
+                                           json={"model_id": "cryptonets"}, timeout=30))
+        fanout.append(ms)
+    match = r.json()["match-nodes"]
+    check(list(match) == ["alice"] and match["alice"]["nodes"]["workers"] == list(PARTIES)
+          and match["alice"]["nodes"]["crypto_provider"] == ["dan"]
+          and match["alice"]["worker_addresses"] == urls,
+          f"grid network: search-encrypted-model answered {match}")
+    model, discover_ms = _host_ms(
+        lambda: EncryptedModel.discover(network.url, "cryptonets", device=device))
+    try:
+        got, counts, secs = counted(
+            lambda: model.predict(x, generator=torch.Generator(device=device).manual_seed(1)),
+            "ring")
+        check(np.array_equal(got, dc_first), "grid network: predict after discover differs "
+              "from phase datacentric's output")
+        check(counts["ring_matmul"] == 16, f"grid network: {counts['ring_matmul']} ring launches "
+              "on the nodes after discover, expected 16")
+        host = statistics.median(_host_ms(lambda: model.predict(x))[1] for _ in range(3))
+    finally:
+        model.close()
+    print(f"[network] encrypted model published over alice, bob, charlie (dan deals) in "
+          f"{publish_ms:.1f} ms; 4-node fan-out POST /search-encrypted-model "
+          f"{statistics.median(fanout):.3f} ms host (median of 5)")
+    print(f"[network] EncryptedModel.discover(network, 'cryptonets', device={str(device)!r}) "
+          f"{discover_ms:.3f} ms host; predict after discover bit-identical to phase "
+          f"datacentric's output, {counts} on the nodes, first call {secs * 1e3:.3f} ms, "
+          f"then {host:.3f} ms host per forward (median of 3) against {grid_dc_ms:.3f} for the "
+          f"directly wired model above")
+    return counts["ring_matmul"], discover_ms, host, statistics.median(fanout)
+
+
+def _grid_public_search(network, urls, device) -> None:
+    """A tagged tensor sent to bob on the card comes back through
+    PublicGridNetwork.search as a pointer on bob."""
+    from pygrid_tpu_torch.client import DataCentricFLClient, PublicGridNetwork
+
+    value = torch.arange(12, dtype=torch.float32, device=device).reshape(3, 4)
+    bob = DataCentricFLClient(urls["bob"], device=device)
+    grid = PublicGridNetwork(network.url, device=device)
+    try:
+        bob.send(value, tags={"#grid-net", "#smoke"})
+        found, ms = _host_ms(lambda: grid.search("#grid-net", "#smoke"))
+        check(list(found) == ["bob"] and len(found["bob"]) == 1,
+              f"grid network: PublicGridNetwork.search found {found}")
+        ptr = found["bob"][0]
+        back = np.asarray(ptr.get(delete=False))
+        check(np.array_equal(back, value.cpu().numpy()),
+              "grid network: the found pointer does not hold the sent tensor")
+    finally:
+        grid.close()
+        bob.close()
+    print(f"[network] PublicGridNetwork.search('#grid-net', '#smoke') {ms:.3f} ms host: "
+          f"one pointer on bob (shape {tuple(ptr.shape)}), its value the tensor sent")
+
+
+def _grid_workers(network, urls, device) -> dict:
+    """One cycle of 8 threaded run_worker(device) on phase fl's CNN plan
+    (batch 64) hosted on alice: four ask the network for placement and
+    report through a port sub-aggregator registered with it, four report
+    direct. The checkpoint equals old - f32(f64 mean of the 8 diffs), bit
+    for bit. Host ms per report on each route."""
+    import threading
+    from pathlib import Path
+
+    from pygrid_tpu_torch import web
+    from pygrid_tpu_torch.client import ModelCentricFLClient
+    from pygrid_tpu_torch.client.fl_client import FLJob
+    from pygrid_tpu_torch.models import cnn
+    from pygrid_tpu_torch.worker import run_worker
+    from pygrid_tpu_torch.worker.subagg import create_subagg_app
+
+    B, K, name = 64, 8, "grid-workers"
+    fixture = Path(__file__).resolve().parent / "pygrid_tpu_torch" / "plans" / "fixtures"
+    params0 = cnn.init(torch.Generator().manual_seed(0), device=device)
+    mc = ModelCentricFLClient(urls["alice"], device=device)
+    sub = None
+    orig_report = FLJob.report
+    try:
+        resp = mc.host_federated_training(
+            model=params0,
+            client_plans={"training_plan": (fixture / "cnn_training_plan.bin").read_bytes()},
+            client_config={"name": name, "version": "1.0", "batch_size": B, "lr": LR_FL,
+                           "max_updates": 1},
+            server_config={"min_workers": K, "max_workers": K, "min_diffs": K, "max_diffs": K,
+                           "num_cycles": 1, "cycle_length": None})
+        check(resp.get("status") == "success", f"grid workers: hosting failed: {resp}")
+        old = [p.cpu() for p in mc.retrieve_model(name, "1.0")]
+        sub = web.BackgroundServer(create_subagg_app(
+            urls["alice"], fanout=3, flush_interval=3600.0, network_url=network.url,
+            register_interval=0.1)).start()
+        agg = sub.app["subagg"]
+        agg.address = sub.url
+        check(agg.registered.wait(30), "grid workers: the sub-aggregator never registered")
+        seen, lock = [], threading.Lock()
+
+        def report(job, diff):  # records each diff and the route its report took
+            via = job.client.aggregator_url
+            t0 = time.perf_counter()
+            out = orig_report(job, diff)
+            ms = (time.perf_counter() - t0) * 1e3
+            with lock:
+                seen.append(([d.detach().float().cpu() for d in diff], via, ms, out))
+            return out
+
+        FLJob.report = report
+        results = [None] * K
+        errors = []
+
+        def go(i):
+            def data(batch):
+                X, y = _fl_batch("cnn", 7, i, "cpu", B=batch)
+                return X.numpy(), y.numpy()
+
+            try:
+                results[i] = run_worker(urls["alice"], name, model_version="1.0", data_fn=data,
+                                        network_url=network.url if i % 2 else None,
+                                        device=device)
+            except Exception as err:  # noqa: BLE001 — raised below, on the main thread
+                errors.append(err)
+
+        threads = [threading.Thread(target=go, args=(i,), name=f"grid-worker-{i}")
+                   for i in range(K)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        wall = (time.perf_counter() - t0) * 1e3
+        check(not errors, f"grid workers: {errors}")
+        check(all(r is not None and r.accepted == 1 and not r.errors for r in results),
+              f"grid workers: {results}")
+        agg.flush_all()  # whatever the fanout left buffered goes up now
+        stats = agg.stats()
+        routes = sorted(v is not None for _, v, _, _ in seen)
+        check(routes == [False] * 4 + [True] * 4 and all(not o.get("error") for *_, o in seen),
+              f"grid workers: routes {routes}")
+        check(stats["leaves_forwarded"] == 4 and stats["flush_errors"] == 0,
+              f"grid workers: sub-aggregator stats {stats}")
+        new = [p.cpu() for p in mc.retrieve_model(name, "1.0")]
+        for i, (o, g) in enumerate(zip(old, new)):
+            mean64 = sum(d[i].double() for d, *_ in seen) / K
+            check(torch.equal(g, o - mean64.float()), f"grid workers: checkpoint tensor {i} is "
+                  "not old - f32(f64 mean of the 8 diffs)")
+    finally:
+        FLJob.report = orig_report
+        if sub is not None:
+            sub.stop()
+        mc.close()
+    ms = {route: statistics.median(m for _, v, m, _ in seen if (v is not None) == route)
+          for route in (False, True)}
+    print(f"[network] 8 threaded run_worker(device={str(device)!r}) on the CNN plan, one cycle "
+          f"in {wall:.1f} ms: 4 through the sub-aggregator the network placed "
+          f"({stats['flushes']} upstream flushes, the first report of a key probing it, "
+          f"{stats['leaves_forwarded']} leaves forwarded), "
+          f"4 direct; checkpoint == old - f32(f64 mean of 8 diffs), bit for bit; host ms per "
+          f"report: direct {ms[False]:.3f}, through the sub-aggregator {ms[True]:.3f} (median "
+          f"of 4 each)")
+    return {"direct": ms[False], "subagg": ms[True]}
+
+
+def _grid_network_block(servers, urls, dc_first, grid_dc_ms, device) -> int:
+    """[network]: a port network on its own loop thread (monitor every
+    0.5 s); the four nodes join it; monitor sweep, health routes, discover
+    and predict, PublicGridNetwork.search, and a worker cycle half through a
+    placed sub-aggregator. Returns the ring launches of predict."""
+    import asyncio
+
+    from pygrid_tpu_torch import web
+    from pygrid_tpu_torch.network import create_app as create_network
+    from pygrid_tpu_torch.node.__main__ import join_network
+
+    network = web.BackgroundServer(create_network("grid-network", monitor_interval=0.5)).start()
+    try:
+        for name, server in servers.items():
+            asyncio.run_coroutine_threadsafe(join_network(network.url, name, server.url),
+                                             server.loop).result(60)
+        _grid_monitor(network, urls)
+        _grid_network_health(network.url)
+        launches, *_ = _grid_discover(network, servers, urls, dc_first, grid_dc_ms, device)
+        _grid_public_search(network, urls, device)
+        _grid_workers(network, urls, device)
+    finally:
+        network.stop()
+    return launches
+
+
 def phase_grid(fl_steps, dc_first, dc_ms, serve_tps, device="cuda") -> int:
     """Four port nodes (alice, bob, charlie, dan), each an app of
     ``pygrid_tpu_torch.node`` on its own loop thread on 127.0.0.1 with its
     tensors on ``device``, driven only through the port's clients over HTTP
     and WebSocket: the model-centric cycle, encrypted inference and
-    generation serving, then every node's health routes and a clean stop.
-    Returns the ring kernel's launches on the nodes."""
+    generation serving, every node's health routes, then the [network]
+    block (a port network the nodes join) and a clean stop. Returns the
+    ring kernel's launches on the nodes."""
     import dataclasses
     import threading
 
@@ -2305,7 +2663,7 @@ def phase_grid(fl_steps, dc_first, dc_ms, serve_tps, device="cuda") -> int:
         print(f"[grid] {card_line()}; nodes {', '.join(f'{n} {u}' for n, u in urls.items())} "
               f"on {device}")
         _grid_fl(urls, fl_steps, device)
-        launches = _grid_datacentric(urls, dc_first, dc_ms, device)
+        launches, grid_dc_ms = _grid_datacentric(urls, dc_first, dc_ms, device)
         _grid_serving(urls, serve_tps, device)
         for name, url in urls.items():
             for path, headers in (("/healthz", None), ("/metrics", None),
@@ -2317,6 +2675,7 @@ def phase_grid(fl_steps, dc_first, dc_ms, serve_tps, device="cuda") -> int:
                     families = promtext.parse(r.text)
         print(f"[grid] every node answered 200 on /healthz, /metrics (strict Prometheus text, "
               f"{len(families)} families on dan), /telemetry/slo and GET /")
+        launches += _grid_network_block(servers, urls, dc_first, grid_dc_ms, device)
     finally:
         for server in servers.values():
             server.stop()
@@ -2328,8 +2687,8 @@ def phase_grid(fl_steps, dc_first, dc_ms, serve_tps, device="cuda") -> int:
             break
         time.sleep(0.1)
     check(not left, f"grid: threads left after the nodes stopped: {left}")
-    print("[grid] the 4 nodes stopped; no thread of theirs is left (the WS executor's pool "
-          "is the process's)")
+    print("[grid] the 4 nodes, the network and the sub-aggregator stopped; no thread of theirs "
+          "is left (the WS executor's pool is the process's)")
     return launches
 
 

@@ -8,16 +8,17 @@ host/inference, node mesh) and ``FLClient``/``FLJob`` (the edge-worker
 training loop with accepted/rejected/error events). All speak the same
 JSON-WS/HTTP protocol the Node serves, over the port's own transports
 (``client.ws_transport``, :mod:`pygrid_tpu_torch.web.client`), and put
-downloaded params on their ``device`` (default ``"cuda"``).
+downloaded params on their ``device`` (default ``"cuda"``), and
+``PublicGridNetwork`` (grid-wide discovery through a Network).
 
-``PublicGridNetwork`` and ``SecAggSession`` are not here yet: they come
-with the port of ``network/``.
+``SecAggSession`` is not here yet.
 """
 
 from pygrid_tpu_torch.client.base import GridWSClient
 from pygrid_tpu_torch.client.data_centric import DataCentricFLClient
 from pygrid_tpu_torch.client.fl_client import FLClient, FLJob
 from pygrid_tpu_torch.client.model_centric import ModelCentricFLClient
+from pygrid_tpu_torch.client.network import PublicGridNetwork
 
 __all__ = [
     "GridWSClient",
@@ -25,4 +26,5 @@ __all__ = [
     "FLClient",
     "FLJob",
     "ModelCentricFLClient",
+    "PublicGridNetwork",
 ]

@@ -8,7 +8,7 @@ of ``{node-id, node-address}`` to the Network's ``/join`` at boot (:78-83),
 then serve. Env fallbacks mirror the reference: NODE_ID, GRID_NETWORK_URL,
 PORT, DATABASE_URL. The port's counterpart of :mod:`pygrid_tpu.node.__main__`:
 ``--device`` (default ``cuda``) is where the node's tensors live, the join
-POSTs through :mod:`pygrid_tpu_torch.web.client`, and the port's
+POSTs through the async :mod:`pygrid_tpu_torch.web.aioclient`, and the port's
 :func:`~pygrid_tpu_torch.web.run_app` serves.
 """
 
@@ -55,20 +55,18 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 
 async def join_network(network_url: str, node_id: str, address: str) -> None:
-    """POST {node-id, node-address} to the Network (reference :78-83); the
-    blocking call runs on the loop's executor."""
-    from pygrid_tpu_torch.web import client as http
-
-    def _post():
-        return http.post(
-            network_url.rstrip("/") + "/join",
-            json={"node-id": node_id, "node-address": address},
-            timeout=10,
-        )
+    """POST {node-id, node-address} to the Network (reference :78-83) on
+    the port's async client, from the node's own event loop."""
+    from pygrid_tpu_torch import web
 
     try:
-        resp = await asyncio.get_running_loop().run_in_executor(None, _post)
-        logger.info("joined network %s: %s", network_url, resp.status_code)
+        async with web.ClientSession(timeout=web.ClientTimeout(total=10)) as session:
+            async with session.post(
+                network_url.rstrip("/") + "/join",
+                json={"node-id": node_id, "node-address": address},
+            ) as resp:
+                await resp.read()
+        logger.info("joined network %s: %s", network_url, resp.status)
     except Exception as err:  # noqa: BLE001 — boot resilience
         logger.warning("could not join network %s: %s", network_url, err)
 

@@ -7,7 +7,14 @@ privacy flow (SURVEY §3.5): the port's counterpart of
    triples) and serves the inference Plan with ``mpc=True``; the served
    plan's State carries :class:`SharedTensorRef` wiring metadata (owners,
    share ids, encoder, provider) but **no share material**.
-2. **Predict** — the client shares its input over the same holders, then
+2. **Discover** — a data scientist asks the Network
+   ``/search-encrypted-model`` (reference
+   ``apps/network/src/app/routes/network.py:157-198``), which fans out to
+   every node's ``/data-centric/search-encrypted-models`` (share-holder walk,
+   reference ``routes/data_centric/routes.py:192-250``) and answers with the
+   share-holders, the crypto provider and their grid addresses
+   (:meth:`EncryptedModel.discover`).
+3. **Predict** — the client shares its input over the same holders, then
    runs the Plan's portable op-list where every value is a
    :class:`~pygrid_tpu_torch.smpc.remote.RemoteSharedTensor`: linear ops are
    share-local pointer ops, every matmul/mul is a cross-worker Beaver round
@@ -19,9 +26,9 @@ privacy flow (SURVEY §3.5): the port's counterpart of
 The op-list is the JAX package's portable dialect: a plan built by the JAX
 package runs here as it does there. A plan built by the port carries no
 op-list (``oplist`` is None), and :meth:`EncryptedModel.predict` raises
-``PlanInvalidError`` for it. Discovery through a Network
-(``EncryptedModel.discover`` in the reference) needs the port's client and
-network planes, which it does not have yet.
+``PlanInvalidError`` for it. Discovery goes through the port's network
+(:mod:`pygrid_tpu_torch.network`) or the JAX package's — they answer the
+same JSON — over :mod:`pygrid_tpu_torch.web.client`.
 """
 
 from __future__ import annotations
@@ -307,7 +314,8 @@ def run_encrypted_oplist(oplist: dict, args: Sequence[Any]) -> Any:
 
 class EncryptedModel:
     """Client handle to an encrypted model: its plan, the weights' shared
-    handles, the share-holders and the provider. The client's opened values
+    handles, the share-holders and the provider — wired by hand or found
+    through a Network (:meth:`discover`). The client's opened values
     (Beaver's d and e, the prediction) live on ``device`` (default
     ``"cuda"``)."""
 
@@ -319,6 +327,7 @@ class EncryptedModel:
         provider: RemoteCryptoProvider,
         encoder: FixedPointEncoder,
         device: str | torch.device = "cuda",
+        all_clients: list[Any] | None = None,
     ) -> None:
         self.plan = plan
         self.weights = weights
@@ -326,6 +335,129 @@ class EncryptedModel:
         self.provider = provider
         self.encoder = encoder
         self.device = device
+        # every client discover() dialed (host included) — close() must
+        # release them all, not just holders/provider
+        self._all_clients = (
+            list(all_clients)
+            if all_clients is not None
+            else holder_clients + [provider.location]
+        )
+
+    @classmethod
+    def discover(
+        cls,
+        network_url: str,
+        model_id: str,
+        client_factory: Callable[[str], Any] | None = None,
+        timeout: float = 30.0,
+        device: str | torch.device = "cuda",
+    ) -> "EncryptedModel":
+        """Search the grid for ``model_id``'s share-holders, connect to
+        them, download the plan from the hosting node, and wire up
+        RemoteSharedTensor handles from its SharedTensorRefs. The clients
+        are ``client_factory(address)``, by default the port's
+        :class:`~pygrid_tpu_torch.client.DataCentricFLClient` on ``device``
+        (default ``"cuda"``; without a GPU that raises unless
+        ``device="cpu"``)."""
+        from pygrid_tpu_torch.client.data_centric import DataCentricFLClient
+        from pygrid_tpu_torch.device import resolve
+        from pygrid_tpu_torch.runtime.pointers import PointerTensor
+        from pygrid_tpu_torch.web import client as http
+
+        dev = resolve(device)
+        factory = client_factory or (
+            lambda addr: DataCentricFLClient(addr, timeout=timeout, device=dev)
+        )
+        # 1. search the network
+        resp = http.post(
+            network_url.rstrip("/") + "/search-encrypted-model",
+            json={"model_id": model_id},
+            timeout=timeout,
+        )
+        if resp.status_code != 200:
+            raise PyGridError(
+                f"encrypted-model search failed ({resp.status_code}): "
+                f"{resp.text[:200]}"
+            )
+        match = resp.json().get("match-nodes") or {}
+        if not match:
+            raise PyGridError(f"no node hosts encrypted model {model_id!r}")
+        host_id, info = next(iter(match.items()))
+        worker_ids = info["nodes"]["workers"]
+        provider_ids = info["nodes"]["crypto_provider"]
+        if not provider_ids:
+            raise PyGridError(
+                f"model {model_id!r} has no crypto provider — its shares "
+                "were placed without one, so Beaver rounds cannot be dealt"
+            )
+        addresses = dict(info.get("worker_addresses") or {})
+        addresses.setdefault(host_id, info["address"])
+        missing = [
+            w for w in worker_ids + provider_ids if w not in addresses
+        ]
+        if missing:
+            raise PyGridError(
+                f"no grid address for share-holder(s) {missing}"
+            )
+
+        # 2. download the plan from the host
+        host = factory(info["address"])
+        clients: dict[str, Any] = {host_id: host}
+        try:
+            plan = host.download_model(model_id)
+            refs = [
+                t
+                for t in (plan.state.tensors() if plan.state else [])
+                if isinstance(t, SharedTensorRef)
+            ]
+            if not refs:
+                raise PyGridError(f"model {model_id!r} carries no shared state")
+
+            def client_of(wid: str):
+                if wid not in clients:
+                    clients[wid] = factory(addresses[wid])
+                return clients[wid]
+
+            # 3. dial the holders and the provider; 4. mesh the provider
+            # into every holder so it can deal Beaver shares to them
+            provider_client = client_of(provider_ids[0])
+            holder_clients = [client_of(w) for w in refs[0].owners]
+            for holder in holder_clients:
+                provider_client.connect_nodes(holder)
+            provider = RemoteCryptoProvider(provider_client)
+            encoder = FixedPointEncoder(
+                refs[0].base, refs[0].precision_fractional
+            )
+            # 5. the weights: RemoteSharedTensors over the refs' share ids
+            weights = [
+                RemoteSharedTensor(
+                    [
+                        PointerTensor(
+                            location=client_of(o),
+                            id_at_location=sid,
+                            shape=ref.shape,
+                        )
+                        for o, sid in zip(ref.owners, ref.share_ids)
+                    ],
+                    FixedPointEncoder(ref.base, ref.precision_fractional),
+                    provider,
+                    dev,
+                )
+                for ref in refs
+            ]
+        except BaseException:
+            for c in clients.values():
+                c.close()
+            raise
+        return cls(
+            plan,
+            weights,
+            holder_clients,
+            provider,
+            encoder,
+            device=dev,
+            all_clients=list(clients.values()),
+        )
 
     def predict(self, x, generator: torch.Generator | None = None) -> np.ndarray:
         """Share the input (drawn from ``generator`` on the model's device),
@@ -356,7 +488,7 @@ class EncryptedModel:
 
     def close(self) -> None:
         seen = set()
-        for c in self.holder_clients + [self.provider.location]:
+        for c in self._all_clients:
             if id(c) not in seen:
                 seen.add(id(c))
                 try:

@@ -6,9 +6,10 @@ Parity surface: the reference implements these twice with the same pattern
 handler takes any context exposing ``.users`` (a
 :class:`pygrid_tpu_torch.users.UserManager`) plus the raw message dict.
 
-The port's copy of :mod:`pygrid_tpu.users.events`, without ``http_twin``,
-the Network app's HTTP door: the node serves these handlers through its own
-routes (``node/routes.py``), and ``http_twin`` comes with ``network/``."""
+The port's copy of :mod:`pygrid_tpu.users.events`. :func:`http_twin` is
+the HTTP door the Network serves these handlers through (the node serves
+them through its own routes, ``node/routes.py``), on the port's
+:mod:`pygrid_tpu_torch.web`."""
 
 from __future__ import annotations
 
@@ -158,3 +159,47 @@ USER_HANDLERS: dict[str, Callable] = {
     ),
 }
 
+
+
+def http_twin(event_type: str, ctx_key: str):
+    """HTTP twin of a user/role/group WS event, shared by Node
+    (``app["node"]``) and Network (``app["network"]``).
+
+    Path parameters take precedence over JSON body keys (the URL names the
+    resource; a body ``id`` must not silently retarget it), and malformed
+    input maps to 400, not 500."""
+    import json
+
+    from pygrid_tpu_torch import web
+
+    async def handler(request):
+        ctx = request.app[ctx_key]
+        try:
+            body = (
+                json.loads(await request.text())
+                if request.can_read_body
+                else {}
+            )
+            if not isinstance(body, dict):
+                # typed, like every protocol-boundary defect: a bare
+                # ValueError here would be indistinguishable from an
+                # internal bug to middleware and tests
+                raise E.PyGridError("JSON object body required")
+        except (
+            json.JSONDecodeError,
+            UnicodeDecodeError,  # request.text() on undecodable bytes
+            E.PyGridError,
+        ) as err:
+            return web.json_response({ERROR: str(err)}, status=400)
+        token = request.headers.get("token")
+        if token and "token" not in body:
+            body["token"] = token
+        body.update(request.match_info)
+        try:
+            response = USER_HANDLERS[event_type](ctx, {MSG_FIELD.DATA: body})
+        except (ValueError, KeyError, TypeError, AttributeError) as err:
+            return web.json_response({ERROR: str(err)}, status=400)
+        status = 200 if ERROR not in response else 400
+        return web.json_response(response, status=status)
+
+    return handler

@@ -16,9 +16,19 @@ handlers read the same:
 - :mod:`.websocket` — the RFC 6455 server side (``WebSocketResponse``,
   ``WSMsgType``);
 - :mod:`.client` — the ``requests`` calls the clients make
-  (``get``/``post``/``put``/``delete``) over ``http.client``.
+  (``get``/``post``/``put``/``delete``) over ``http.client``;
+- :mod:`.aioclient` — the ``aiohttp.ClientSession`` calls the network and
+  the sub-aggregator make from their event loops (``ClientSession``,
+  ``ClientTimeout``, ``ClientError``), on ``asyncio`` streams.
 """
 
+from pygrid_tpu_torch.web.aioclient import (  # noqa: F401
+    ClientConnectorError,
+    ClientError,
+    ClientResponse,
+    ClientSession,
+    ClientTimeout,
+)
 from pygrid_tpu_torch.web.server import (  # noqa: F401
     AppRunner,
     Application,

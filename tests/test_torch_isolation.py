@@ -1,7 +1,8 @@
 """The port stands alone: pygrid_tpu_torch imports neither ``jax`` nor
 anything of ``pygrid_tpu``, nor the packages the card's machine lacks
 (``msgpack``, ``ml_dtypes``, ``orbax``, ``aiohttp``; ``websockets`` and
-``requests`` only lazily, and the node's apps and clients not at all), and
+``requests`` only lazily, and the node's and the network's apps, the
+workers and the clients not at all), and
 its entry points never move to the CPU unless asked."""
 
 import ast
@@ -37,9 +38,10 @@ def _modules() -> list[str]:
 BANNED = ("jax", "jaxlib", "pygrid_tpu", "msgpack", "ml_dtypes", "orbax", "aiohttp")
 #: imported only inside a function, where it is optional
 LAZY = ("websockets", "requests")
-#: the node's apps, clients and web layer speak HTTP through the port's own
-#: ``web`` package: they never import ``requests``, not even in a function
-NO_REQUESTS = [PKG / d for d in ("web", "users", "client", "node")] + [
+#: the node's and the network's apps, the workers, the clients and the web
+#: layer speak HTTP through the port's own ``web`` package: they never
+#: import ``requests``, not even in a function
+NO_REQUESTS = [PKG / d for d in ("web", "users", "client", "node", "network", "worker")] + [
     PKG / "telemetry" / f for f in ("__init__.py", "promtext.py", "slo.py")]
 
 
@@ -145,6 +147,30 @@ _BLOCKED_IMPORT = textwrap.dedent(
         assert http.get(server.url + "/healthz", timeout=10).json() == {{"status": "ok"}}
     finally:
         server.stop()
+    # the network on the web layer: a node joins it through join_network,
+    # the monitor's sweep polls it over the async client, and the search
+    # fan-out and PublicGridNetwork reach it
+    import asyncio, time
+    from pygrid_tpu_torch.client import PublicGridNetwork
+    from pygrid_tpu_torch.network import create_app as create_network
+    from pygrid_tpu_torch.node.__main__ import join_network
+    network = web.BackgroundServer(create_network("net", monitor_interval=0.05)).start()
+    node = web.BackgroundServer(create_app("bob", device="cpu")).start()
+    try:
+        asyncio.run(join_network(network.url, "bob", node.url))
+        deadline = time.monotonic() + 30
+        while network.app["network"].proxies["bob"].status != "online":
+            assert time.monotonic() < deadline, "the monitor never reached bob"
+            time.sleep(0.02)
+        client = DataCentricFLClient(node.url, device="cpu")
+        client.send(np.arange(2.0), tags={{"#iso"}})
+        client.close()
+        grid = PublicGridNetwork(network.url, device="cpu")
+        assert list(grid.search("#iso")) == ["bob"]
+        grid.close()
+    finally:
+        node.stop()
+        network.stop()
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("ok", len({_modules()!r}))
@@ -189,9 +215,10 @@ def test_every_module_imports_with_jax_and_pygrid_tpu_blocked(runs):
     ``msgpack``, ``ml_dtypes``, ``orbax``, ``websockets`` and ``requests``
     imports every module of the port and chip_smoke.py, and runs the port's
     serde, frame, native and model-params round trips, a committed JAX-built
-    plan, an encrypted forward, a speculative paged engine and a node
-    answering the port's clients over its own HTTP and WebSocket layer, as
-    the card's machine would (no ``aiohttp``, no ``requests``)."""
+    plan, an encrypted forward, a speculative paged engine, a node
+    answering the port's clients over its own HTTP and WebSocket layer and
+    a network that node joins, monitors and searches over the async client,
+    as the card's machine would (no ``aiohttp``, no ``requests``)."""
     rc, stdout, stderr = _wait(runs["blocked_import"])
     assert rc == 0, stderr
     assert stdout.startswith("ok")
@@ -243,6 +270,18 @@ def test_entry_points_without_device_cpu_raise_on_a_gpu_less_host(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         import_checkpoint(tmp_path / "ckpt")
     assert torch.equal(import_checkpoint(tmp_path / "ckpt", device="cpu")[0], torch.ones(2))
+    # the network plane's entry points: each raises before it dials anything
+    from pygrid_tpu_torch.client import PublicGridNetwork
+    from pygrid_tpu_torch.smpc import EncryptedModel
+    from pygrid_tpu_torch.worker import run_worker
+
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        EncryptedModel.discover("http://127.0.0.1:1", "m")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        PublicGridNetwork("http://127.0.0.1:1")
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        run_worker("http://127.0.0.1:1", "m")
+    assert PublicGridNetwork("http://127.0.0.1:1", device="cpu").device == torch.device("cpu")
 
 
 def test_plan_and_oplist_with_device_cuda_raise_on_a_gpu_less_host():
@@ -301,7 +340,7 @@ def _imported_names(path: Path) -> list[tuple[int, str]]:
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_node_apps_and_clients_never_import_requests(path):
     """``requests`` appears in no import of the web layer, users/, client/,
-    node/ or the node's telemetry modules — at module level or inside a
-    function."""
+    node/, network/, worker/ or the node's telemetry modules — at module
+    level or inside a function."""
     bad = [(line, n) for line, n in _imported_names(path) if n.split(".")[0] == "requests"]
     assert not bad, f"{path.name} imports requests at {bad}"
