@@ -117,6 +117,24 @@ and the script exits non-zero:
               sub-aggregator the network placed, the checkpoint old -
               f32(f64 mean) bit for bit. A clean stop (no thread left).
               Host ms per step beside the in-process phases.
+16. secagg  — secure aggregation and port-built plans: (a) the MNIST CNN's
+              and the MLP's training steps built by the port (Plan.build:
+              make_fx, torch.export, fx_to_oplist), each op list run on the
+              card against the direct step and the JAX-built fixture on the
+              same params within rtol 2e-4 / atol 2e-5, device and event ms
+              per step beside the JAX-built list's; (b) a port node on its
+              loop thread hosting the port-built CNN plan with secure
+              aggregation (clip 0.5, threshold 3) and four port FLClients
+              with SecAggSession training on the card at batch 64, once all
+              reporting and once with one leaving after the masking phase
+              opens: each checkpoint within n · step of the survivors' plain
+              mean, host ms per round stage; (c) simulate_secagg_round for
+              16 clients over the CNN's 1.2 M params, bit-identical to the
+              plain quantised sum and to the CPU's round, device ms and
+              launches of a masked sum; (d) the port-built CryptoNets plan
+              through EncryptedModel.predict with phase datacentric's seeds:
+              16 ring launches (counted in the kernels line), within
+              MLP_ATOL of float64, bit-identical to the JAX-built plan's.
 
 Then it prints the kernels line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX
@@ -2692,6 +2710,275 @@ def phase_grid(fl_steps, dc_first, dc_ms, serve_tps, device="cuda") -> int:
     return launches
 
 
+SECAGG_CLIP, SECAGG_THRESHOLD, SECAGG_K = 0.5, 3, 4
+SIM_CLIENTS = 16
+CRYPTONETS_SHAPES = ((256, 784), (784, 392), (392,), (392, 10), (10,))
+
+
+def cryptonets_forward(x, w1, b1, w2, b2):
+    """examples/encrypted_inference.py's forward, written in torch: affine
+    → square → affine."""
+    h = x @ w1 + b1
+    h = h * h
+    return h @ w2 + b2
+
+
+def _secagg_plans(device) -> bytes:
+    """(a) The MNIST CNN's and the MLP's training_step built by the port
+    (Plan.build on the CPU: make_fx, torch.export, fx_to_oplist), each op
+    list run on the card against the direct step and against the JAX-built
+    fixture on the same params; device and event ms per step beside the
+    JAX-built list's. Returns the port-built CNN plan's blob."""
+    from pathlib import Path
+
+    from pygrid_tpu_torch import serde
+    from pygrid_tpu_torch.models import cnn, mlp
+    from pygrid_tpu_torch.plans import Plan
+    from pygrid_tpu_torch.plans.translators import count_ops, run_oplist
+
+    B, LR = 64, LR_FL
+    fixtures = Path(__file__).resolve().parent / "pygrid_tpu_torch" / "plans" / "fixtures"
+    lr_t = torch.tensor(LR, device=device)
+    cnn_blob = b""
+    for kind, model, params in (
+            ("cnn", cnn, cnn.init(torch.Generator().manual_seed(0), device=device)),
+            ("mlp", mlp, mlp.init((784, 392, 10), generator=torch.Generator().manual_seed(1),
+                                  device=device))):
+        example = [torch.zeros(s) for s in ((B, 28, 28, 1) if kind == "cnn" else (B, 784),
+                                             (B, 10))] + [torch.tensor(LR)]
+        plan, build_ms = _host_ms(lambda: Plan(name="training_plan", fn=model.training_step)
+                                  .build(*example, *[p.cpu() for p in params]))
+        check(plan.oplist is not None, f"secagg: the port-built {kind} plan has no op list")
+        jax_list = serde.deserialize((fixtures / f"{kind}_training_plan.bin").read_bytes()).oplist
+        X, y = _fl_batch(kind, 7, 0, device)
+        port = run_oplist(plan.oplist, X, y, lr_t, *params, device=device)
+        direct = model.training_step(X, y, lr_t, *params)
+        jax_built = run_oplist(jax_list, X, y, lr_t, *params, device=device)
+        check(_finite(*port), f"secagg: the port-built {kind} list's step is not finite")
+        for what, ref in (("the direct step", direct), ("the JAX-built list", jax_built)):
+            check(_fl_close(port, ref), f"secagg: the port-built {kind} list differs from {what} "
+                  f"by {_fl_max_err(port, ref):.3e}")
+        print(f"[secagg] (a) {kind}: port-built plan in {build_ms:.1f} ms on the CPU, "
+              f"{len(plan.oplist['eqns'])} ops ({count_ops(plan.oplist)} a run; the JAX-built "
+              f"list {count_ops(jax_list)}); its step on the card against the direct step "
+              f"{_fl_max_err(port, direct):.3e} max abs ({_fl_tol_share(port, direct):.4f} of "
+              f"rtol 2e-4 / atol 2e-5), against the JAX-built list {_fl_max_err(port, jax_built):.3e}"
+              f" ({_fl_tol_share(port, jax_built):.4f})")
+        for what, ol in (("port-built", plan.oplist), ("JAX-built", jax_list)):
+            def step(ol=ol):
+                return run_oplist(ol, X, y, lr_t, *params, device=device)
+            print(f"[secagg] (a) {kind} step at batch {B}, {what} list: device "
+                  f"{device_ms(step):.4f} ms, events {time_ms(step, iters=10, repeats=5):.4f} ms "
+                  "per step")
+        if kind == "cnn":
+            cnn_blob = serde.serialize(plan)
+    return cnn_blob
+
+
+def _secagg_worker(url, name, i, drop, device, masked, results) -> None:
+    """One port worker's SecAgg cycle on ``device``: the four rounds, and
+    between masking and report a training step of the "list" variant at
+    batch 64. No worker reports before all have seen the masking phase
+    (``masked``, a barrier), so the one that leaves leaves after it.
+    Records (phase, host-side diffs, stage ms) or the error."""
+    from pygrid_tpu_torch.client import FLClient, SecAggSession
+    from pygrid_tpu_torch.plans.translators import run_oplist
+    from pygrid_tpu_torch.utils.codes import CYCLE
+
+    try:
+        client = FLClient(url, timeout=120.0, device=device)
+        try:
+            wid = client.authenticate(name, "1.0")["worker_id"]
+            cyc = client.cycle_request(wid, name, "1.0", 1.0, 1000.0, 1000.0)
+            check(cyc.get(CYCLE.STATUS) == CYCLE.ACCEPTED, f"secagg: worker {i} rejected: {cyc}")
+            key = cyc[CYCLE.KEY]
+            session = SecAggSession(client, wid, key, cyc.get("client_config"))
+            ms = {}
+            _, ms["advertise -> roster"] = _host_ms(
+                lambda: (session.advertise(), session.wait_roster(timeout=120.0)))
+            _, ms["shares -> masking"] = _host_ms(
+                lambda: (session.upload_shares(), session.wait_masking(timeout=120.0)))
+            masked.wait(timeout=300)
+            if drop:
+                results[i] = ("dropped", None, ms)
+                return
+            params = client.get_model(wid, key, cyc["model_id"])
+            oplist = client.get_plan(wid, key, cyc[CYCLE.PLANS]["training_plan"],
+                                     receive_operations_as="list")
+            X, y = _fl_batch("cnn", 20, i, device)
+            out = run_oplist(oplist, X, y, torch.tensor(LR_FL, device=device), *params,
+                             device=device)
+            check(_finite(*out), f"secagg: worker {i}'s step is not finite")
+            diff = [p - n for p, n in zip(params, out[2:])]  # on the card
+            _, ms["report"] = _host_ms(lambda: session.report(diff))
+            phase, ms["finish"] = _host_ms(lambda: session.finish(timeout=120.0))
+            results[i] = (phase, [d.cpu().numpy() for d in diff], ms)
+        finally:
+            client.close()
+    except Exception as err:  # noqa: BLE001 — raised by the phase below
+        results[i] = ("error", err, {})
+
+
+def _secagg_cycle(device, plan_blob) -> None:
+    """(b) One port node on ``device`` (a loop thread) hosts the port-built
+    CNN plan with secure aggregation (clip 0.5, threshold 3); four port
+    FLClients with SecAggSession train on the card. Once with all four
+    reporting, once with worker 3 leaving after the masking phase opens:
+    each checkpoint within n · step of the survivors' plain mean."""
+    import threading
+
+    from pygrid_tpu_torch import web
+    from pygrid_tpu_torch.client import ModelCentricFLClient
+    from pygrid_tpu_torch.federated import secagg, tasks
+    from pygrid_tpu_torch.models import cnn
+    from pygrid_tpu_torch.node import create_app
+
+    tasks.set_sync(True)
+    server = web.BackgroundServer(create_app("secagg", device=device)).start()
+    try:
+        params0 = [p.cpu().numpy() for p in cnn.init(torch.Generator().manual_seed(0),
+                                                     device=device)]
+        for name, drop_idx in (("secagg-full", None), ("secagg-drop", SECAGG_K - 1)):
+            n_diffs = SECAGG_K if drop_idx is None else SECAGG_THRESHOLD
+            mc = ModelCentricFLClient(server.url, device=device)
+            try:
+                resp = mc.host_federated_training(
+                    model=params0, client_plans={"training_plan": plan_blob},
+                    client_config={"name": name, "version": "1.0", "batch_size": 64,
+                                   "lr": LR_FL, "max_updates": 1},
+                    server_config={"min_workers": SECAGG_K, "max_workers": SECAGG_K,
+                                   "min_diffs": n_diffs, "max_diffs": n_diffs, "num_cycles": 1,
+                                   "pool_selection": "random",
+                                   "do_not_reuse_workers_until_cycle": 0,
+                                   "secure_aggregation": {"clip_range": SECAGG_CLIP,
+                                                          "threshold": SECAGG_THRESHOLD,
+                                                          "phase_timeout": 60.0}})
+                check(resp.get("status") == "success", f"secagg: hosting failed: {resp}")
+                results: dict = {}
+                masked = threading.Barrier(SECAGG_K)
+                threads = [threading.Thread(target=_secagg_worker, daemon=True,
+                                            args=(server.url, name, i, i == drop_idx, device,
+                                                  masked, results))
+                           for i in range(SECAGG_K)]
+                t0 = time.perf_counter()
+                for t in threads:
+                    t.start()
+                for t in threads:
+                    t.join(timeout=300)
+                wall = (time.perf_counter() - t0) * 1e3
+                check(not any(t.is_alive() for t in threads), f"secagg {name}: a worker hangs")
+                errors = {i: r[1] for i, r in results.items() if r[0] == "error"}
+                check(not errors, f"secagg {name}: worker errors {errors}")
+                survivors = [r for r in results.values() if r[1] is not None]
+                check(all(r[0] in ("done", "closed") for r in survivors),
+                      f"secagg {name}: phases {[r[0] for r in results.values()]}")
+                new = [p.cpu().numpy() for p in mc.retrieve_model(name, "1.0")]
+            finally:
+                mc.close()
+            step = 1.0 / secagg.choose_scale(SECAGG_CLIP, SECAGG_K)
+            worst = 0.0
+            for k, (p, got) in enumerate(zip(params0, new)):
+                want = p - np.mean([r[1][k] for r in survivors], axis=0, dtype=np.float64)
+                err = float(np.abs(got.astype(np.float64) - want).max())
+                check(err <= SECAGG_K * step + 1e-6, f"secagg {name}: checkpoint tensor {k} is "
+                      f"{err:.3e} off the survivors' plain mean (limit n * step + 1e-6)")
+                worst = max(worst, err)
+            stages = {s: statistics.median(r[2][s] for r in survivors)
+                      for s in ("advertise -> roster", "shares -> masking", "report", "finish")}
+            print(f"[secagg] (b) {name}: {len(survivors)} of {SECAGG_K} workers reported on "
+                  f"{device}, checkpoint within {worst:.3e} of the survivors' plain mean (n * step "
+                  f"= {SECAGG_K * step:.3e}, + 1e-6); cycle wall {wall:.1f} ms; host ms per stage, "
+                  "median of the reporting workers: "
+                  + ", ".join(f"{s} {v:.3f}" for s, v in stages.items()))
+    finally:
+        server.stop()
+
+
+def _secagg_sim(device) -> None:
+    """(c) simulate_secagg_round on the card: 16 clients over the CNN's
+    parameter count, bit-identical to the plain quantised sum and to the
+    same round on the CPU; device ms and the launches of one masked sum."""
+    from pygrid_tpu_torch.federated import secagg
+    from pygrid_tpu_torch.models import cnn
+    from pygrid_tpu_torch.parallel import secagg_sim
+    from pygrid_tpu_torch.utils import prng
+
+    n = sum(int(np.prod(s)) for s in cnn.PARAM_SHAPES)
+    K = SIM_CLIENTS
+    diffs = np.random.default_rng(31).normal(0, 0.01, (K, n)).astype(np.float32)
+    key = prng.PRNGKey(5, device=device)
+    got, ms = _host_ms(lambda: secagg_sim.simulate_secagg_round(key, diffs, SECAGG_CLIP,
+                                                                device=device))
+    quantized = np.stack([secagg.quantize([d], SECAGG_CLIP, K)[0] for d in diffs])
+    plain = secagg.dequantize_sum([quantized.sum(axis=0, dtype=np.uint32)], SECAGG_CLIP, K, K)[0]
+    check(np.array_equal(got, plain), "secagg sim: the masked sum is not the plain quantised sum")
+    t0 = time.perf_counter()
+    cpu = secagg_sim.simulate_secagg_round(prng.PRNGKey(5, device="cpu"), diffs, SECAGG_CLIP,
+                                           device="cpu")
+    cpu_s = time.perf_counter() - t0
+    check(np.array_equal(got, cpu), "secagg sim: the card's round differs from the CPU's")
+    words = torch.from_numpy(quantized.astype(np.int64)).to(device)
+    masked = lambda: secagg_sim.masked_sum(key, words, device=device)  # noqa: E731
+    _, kernels = profiled(masked)
+    launches = sum(e.count for e in kernels)
+    print(f"[secagg] (c) simulate_secagg_round, {K} clients x {n} params ({4 * n / 1e6:.1f} MB "
+          f"a diff) on {device}: bit-identical to the plain quantised sum and to the CPU's round "
+          f"({cpu_s:.1f} s there); round {ms:.3f} ms host (quantise on the host included); one "
+          f"masked sum: device {device_ms(masked, calls=3):.4f} ms, events "
+          f"{time_ms(masked, iters=2, repeats=3):.4f} ms, {launches} kernel launches")
+
+
+def _secagg_cryptonets(device, dc_first) -> int:
+    """(d) The CryptoNets forward built by the port (784→392→10, batch 256)
+    through EncryptedModel.predict over alice, bob and charlie with dan
+    dealing, with phase datacentric (a)'s seeds: 16 ring launches, within
+    MLP_ATOL of float64 and bit-identical to the JAX-built plan's output
+    of (a). Returns the launches."""
+    from pygrid_tpu_torch.plans import Plan
+    from pygrid_tpu_torch.smpc import (CryptoProvider, EncryptedModel, FixedPointEncoder,
+                                       RemoteCryptoProvider, fix_prec_share_to_nodes)
+
+    plan = Plan(name="encrypted_forward", fn=cryptonets_forward).build(
+        *[torch.zeros(s) for s in CRYPTONETS_SHAPES])
+    ops = [e["op"] for e in plan.oplist["eqns"]]
+    check(ops == ["dot_general", "broadcast_in_dim", "add", "mul", "dot_general",
+                  "broadcast_in_dim", "add"], f"secagg: the port-built CryptoNets list is {ops}")
+    x, w1, b1, w2, b2 = plain = mlp_plaintext()
+    want = mlp_forward(*plain)[-1]
+    holders, dan = _dc_grid(device, CryptoProvider(seed=DC_SEED, device=device))
+    gw = torch.Generator(device=device).manual_seed(DC_SEED)
+    shared = [fix_prec_share_to_nodes(w, holders, crypto_provider=dan, generator=gw,
+                                      device=device) for w in (w1, b1[0], w2, b2[0])]
+    model = EncryptedModel(plan, shared, holders, RemoteCryptoProvider(dan), FixedPointEncoder(),
+                           device=device)
+    out, counts, secs = counted(
+        lambda: model.predict(x, generator=torch.Generator(device=device).manual_seed(1)), "ring")
+    err = float(np.abs(out - want).max())
+    check(counts["ring_matmul"] == 16,
+          f"secagg: {counts['ring_matmul']} ring launches a forward, expected 16")
+    check(err <= MLP_ATOL, f"secagg: decoded output {err:.3e} from float64, limit {MLP_ATOL:.3e}")
+    check(np.array_equal(out, dc_first),
+          "secagg: the port-built plan's forward differs from the JAX-built plan's")
+    print(f"[secagg] (d) the port-built CryptoNets plan ({len(ops)} ops, the JAX-built list's op "
+          f"for op) through EncryptedModel.predict on {device}: {secs * 1e3:.3f} ms (first "
+          f"call), launches {counts}, decoded max abs err vs float64 {err:.4e} (limit "
+          f"{MLP_ATOL:.4e}), bit-identical to phase datacentric's JAX-built forward: True")
+    return counts["ring_matmul"]
+
+
+def phase_secagg(dc_first, device="cuda") -> int:
+    """Secure aggregation and port-built plans on the card: (a) the port's
+    own CNN and MLP training plans as op lists, (b) a SecAgg cycle of four
+    port workers over a port node, (c) the on-device SecAgg simulation, (d)
+    the port-built CryptoNets plan's encrypted forward. Returns (d)'s ring
+    launches."""
+    print(f"[secagg] {card_line()}")
+    plan_blob = _secagg_plans(device)
+    _secagg_cycle(device, plan_blob)
+    _secagg_sim(device)
+    return _secagg_cryptonets(device, dc_first)
+
+
 def main() -> int:
     check(torch.cuda.is_available(), "no CUDA GPU: chip_smoke.py runs on the card only")
     import pygrid_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
@@ -2717,7 +3004,9 @@ def main() -> int:
     dc_launches, dc_first, dc_ms = phase_datacentric()
     serve_tps = phase_serving()
     grid_launches = phase_grid(fl_steps["mnist-cnn-list"], dc_first, dc_ms, serve_tps)
-    launches["ring_matmul"] = smpc_launches + mlp_launches + dc_launches + grid_launches
+    secagg_launches = phase_secagg(dc_first)
+    launches["ring_matmul"] = (smpc_launches + mlp_launches + dc_launches + grid_launches
+                               + secagg_launches)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -9,9 +9,8 @@ training loop with accepted/rejected/error events). All speak the same
 JSON-WS/HTTP protocol the Node serves, over the port's own transports
 (``client.ws_transport``, :mod:`pygrid_tpu_torch.web.client`), and put
 downloaded params on their ``device`` (default ``"cuda"``), and
-``PublicGridNetwork`` (grid-wide discovery through a Network).
-
-``SecAggSession`` is not here yet.
+``PublicGridNetwork`` (grid-wide discovery through a Network), and
+``SecAggSession``, a worker's half of a secure-aggregation cycle.
 """
 
 from pygrid_tpu_torch.client.base import GridWSClient
@@ -19,6 +18,7 @@ from pygrid_tpu_torch.client.data_centric import DataCentricFLClient
 from pygrid_tpu_torch.client.fl_client import FLClient, FLJob
 from pygrid_tpu_torch.client.model_centric import ModelCentricFLClient
 from pygrid_tpu_torch.client.network import PublicGridNetwork
+from pygrid_tpu_torch.client.secagg import SecAggRefusal, SecAggSession
 
 __all__ = [
     "GridWSClient",
@@ -27,4 +27,6 @@ __all__ = [
     "FLJob",
     "ModelCentricFLClient",
     "PublicGridNetwork",
+    "SecAggRefusal",
+    "SecAggSession",
 ]

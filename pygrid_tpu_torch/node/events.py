@@ -825,21 +825,19 @@ def _servable_and_data(ctx: NodeContext, message: dict):
 def run_inference(ctx: NodeContext, message: dict, conn: Connection) -> dict:
     """(reference model_events.py:77-129) run a hosted model on submitted
     data; predictions return as a plain list. A hosted plan runs on the
-    node's device from its op list — never from a ``torch_blob`` that came
-    without a live ``fn`` (loading one can unpickle), which a worker
-    refuses too."""
+    node's device from its op list — never from its ``torch_blob`` (loading
+    one can unpickle), as on a worker."""
     _authenticated(conn)
     from pygrid_tpu_torch.plans.plan import Plan
-    from pygrid_tpu_torch.runtime.worker import _refuse_torch_blob
+    from pygrid_tpu_torch.runtime.worker import run_received_plan
 
     try:
         got = _servable_and_data(ctx, message)
         if isinstance(got, dict):
             return got
         hosted, data = got
-        _refuse_torch_blob(hosted.model)
         if isinstance(hosted.model, Plan):
-            output = hosted.model(data, device=ctx.device)
+            output = run_received_plan(hosted.model, [data], ctx.device)
         else:
             output = hosted.model(data)
         if isinstance(output, (tuple, list)):

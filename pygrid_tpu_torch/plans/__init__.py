@@ -10,6 +10,7 @@ from pygrid_tpu_torch.plans.translators import (  # noqa: F401
     PlanTranslatorDefault,
     PlanTranslatorPortable,
     PlanTranslatorXla,
+    fx_to_oplist,
     run_oplist,
     translate_plan,
 )

@@ -15,9 +15,10 @@ A port Plan runs plans of two origins.
   exports the graph with ``torch.export`` and keeps the ``torch.export.save``
   bytes under a ninth wire key, ``torch_blob`` — the ``"torchscript"``
   variant, the reference's own name for it. ``code`` is the graph's
-  readable code; ``oplist`` stays None (no torch-graph → op-list
-  translator yet), so the ``"list"`` variant raises as the reference does
-  for a plan without one.
+  readable code, and ``oplist`` the decomposed program lowered to the
+  portable dialect (:func:`~pygrid_tpu_torch.plans.translators.fx_to_oplist`),
+  so a JAX node, a JAX or numpy client and the encrypted interpreter run
+  the plan as they run a JAX-built one.
 
 A call prefers a live ``fn``, then ``torch_blob``, then ``oplist``. A plan
 traced on a host runs on the card: the devices baked into the exported
@@ -26,7 +27,8 @@ rewritten to the call's device when the program is loaded.
 
 ``torch.export.load`` can fall back to unpickling, so a ``torch_blob`` is
 trusted input (``jax.export`` bytes are not code): take plans only from an
-authenticated host.
+authenticated host. A plan that came off the wire from anyone else runs
+through :meth:`Plan.run_list`, its op list alone.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ import torch
 
 from pygrid_tpu_torch.device import resolve
 from pygrid_tpu_torch.plans.state import State
+from pygrid_tpu_torch.plans.translators import fx_to_oplist, run_oplist
 from pygrid_tpu_torch.serde import register_serde
 from pygrid_tpu_torch.utils.exceptions import PlanInvalidError
 
@@ -119,8 +122,10 @@ class Plan:
 
     def build(self, *example_args: Any) -> "Plan":
         """Trace ``fn`` on example args on the host and capture the
-        ``torch.export`` program. If the plan carries a State, its tensors
-        are appended as trailing inputs and injected at call time."""
+        ``torch.export`` program and its op list (a function with an op
+        that has no lowering raises here, naming it). If the plan carries a
+        State, its tensors are appended as trailing inputs and injected at
+        call time."""
         if self.fn is None:
             raise PlanInvalidError("Plan has no function to build")
         from torch.fx.experimental.proxy_tensor import make_fx
@@ -132,6 +137,7 @@ class Plan:
         graph = make_fx(self.fn)(*example)
         self.code = graph.code
         exported = torch.export.export(graph, example, strict=False)
+        self.oplist = fx_to_oplist(exported.run_decompositions())
         exported.example_inputs = None  # the blob carries the program, not the params
         buf = io.BytesIO()
         torch.export.save(exported, buf)
@@ -157,17 +163,23 @@ class Plan:
         """Run the plan on ``device`` (default ``"cuda"``; without a GPU
         that raises unless the caller passes ``device="cpu"``)."""
         dev = resolve(device)
+        if self.fn is None and self.torch_blob is None:
+            return self.run_list(*args, device=dev)
         if self.n_state_inputs:
             args = tuple(args) + tuple(self.state.tensors())
         if self.fn is not None:
             return self.fn(*[_lift(a, dev) for a in args])
-        if self.torch_blob is not None:
-            return self._program(dev)(*[_lift(a, dev) for a in args])
-        if self.oplist is not None:
-            from pygrid_tpu_torch.plans.translators import run_oplist
+        return self._program(dev)(*[_lift(a, dev) for a in args])
 
-            return run_oplist(self.oplist, *args, backend="torch", device=dev)
-        raise PlanInvalidError("Plan is not built")
+    def run_list(self, *args: Any, device: str | torch.device = "cuda"):
+        """Run the op list alone, never ``fn`` or ``torch_blob``: how a
+        plan that came off the wire runs on a worker or a node."""
+        if self.oplist is None:
+            raise PlanInvalidError("Plan is not built" if not self.is_built
+                                   else "Plan has no op list")
+        if self.n_state_inputs:
+            args = tuple(args) + tuple(self.state.tensors())
+        return run_oplist(self.oplist, *args, backend="torch", device=device)
 
     # --- serde -------------------------------------------------------------
 

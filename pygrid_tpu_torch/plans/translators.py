@@ -1567,6 +1567,414 @@ def count_ops(oplist: dict) -> int:
     return n
 
 
+# --- torch.export program -> oplist -----------------------------------------
+#
+# The torch-graph counterpart of the reference's ``jaxpr_to_oplist``: a
+# plan built by the port gets the same portable "list" variant a JAX-built
+# plan has. The input is the exported program after ``run_decompositions()``
+# (core ATen, functional: no in-place op survives). Each ATen op maps onto
+# the dialect's own primitives as ``jax.make_jaxpr`` would have emitted
+# them, so the JAX package's interpreters, the port's and the encrypted
+# interpreter all run the list; the convolution gradients follow JAX's own
+# transpose rules (``rev`` of the kernel, lhs dilation by the stride, batch
+# and feature swapped for the weight gradient). An op with no lowering
+# raises; nothing is dropped.
+
+
+def _sanitize_param(value: Any) -> Any:
+    """One eqn param in the reference's wire-safe encoding (its
+    ``_sanitize_param``): dtypes as ``{"__dtype__": name}``, tuples as
+    lists."""
+    if isinstance(value, (bool, int, float, str, type(None))):
+        return value
+    if isinstance(value, torch.dtype):
+        return {"__dtype__": str(value).removeprefix("torch.")}
+    if isinstance(value, (tuple, list)):
+        return [_sanitize_param(v) for v in value]
+    if isinstance(value, dict):
+        return {str(k): _sanitize_param(v) for k, v in value.items()}
+    return {"__repr__": repr(value)}
+
+
+class _Val:
+    """A lowered value: its operand reference (``{"var": id}`` or a
+    literal), shape and dialect dtype (64-bit types at 32 bits)."""
+
+    __slots__ = ("ref", "shape", "dtype")
+
+    def __init__(self, ref: dict, shape, dtype: torch.dtype) -> None:
+        self.ref = ref
+        self.shape = tuple(int(d) for d in shape)
+        self.dtype = _CANONICAL.get(dtype, dtype)
+
+
+#: stands for the indices output of ``max_pool2d_with_indices``, which has
+#: no dialect op: only the pool's own backward may read it (and ignores it)
+_POOL_INDICES = object()
+
+_ELEMENTWISE = {
+    "aten.add.Tensor": "add", "aten.sub.Tensor": "sub", "aten.mul.Tensor": "mul",
+    "aten.div.Tensor": "div", "aten.div.Scalar": "div", "aten.maximum.default": "max",
+}
+_COMPARISONS = {
+    f"aten.{name}.{kind}": name
+    for name in ("eq", "ne", "lt", "le", "gt", "ge") for kind in ("Tensor", "Scalar")
+}
+_UNARY = {"aten.neg.default": "neg", "aten.exp.default": "exp"}
+#: identities of a functional program
+_ALIASES = ("aten.clone.default", "aten.alias.default")
+_RESHAPES = ("aten.view.default", "aten.squeeze.dims", "aten.squeeze.dim",
+             "aten.unsqueeze.default")
+_POOL_BACKWARD = "aten.max_pool2d_with_indices_backward.default"
+
+
+def _pair(v, n: int) -> list[int]:
+    v = [int(x) for x in (v if isinstance(v, (list, tuple)) else [v])]
+    return v * n if len(v) == 1 else v
+
+
+class _FxLowering:
+    """One walk of an exported program's graph into the dialect."""
+
+    def __init__(self) -> None:
+        self.eqns: list[dict] = []
+        self.n_ids = 0
+
+    def fresh(self) -> int:
+        self.n_ids += 1
+        return self.n_ids - 1
+
+    def emit(self, op: str, ins, out_shape, out_dtype, **params) -> _Val:
+        out = self.fresh()
+        self.eqns.append({
+            "op": op,
+            "in": [v.ref for v in ins],
+            "out": [out],
+            "params": {k: _sanitize_param(v) for k, v in params.items()},
+        })
+        return _Val({"var": out}, out_shape, out_dtype)
+
+    @staticmethod
+    def literal(value, dtype: torch.dtype) -> _Val:
+        dtype = _CANONICAL.get(dtype, dtype)
+        name = str(dtype).removeprefix("torch.")
+        try:
+            arr = np.asarray(value, dtype=np.dtype(name))
+        except TypeError as err:
+            raise PlanTranslationError(f"no numpy literal of dtype {name}") from err
+        return _Val({"lit_arr": arr}, (), dtype)
+
+    # -- building blocks ---------------------------------------------------
+
+    def at(self, x, dtype: torch.dtype) -> _Val:
+        """``x`` at ``dtype``: a Python scalar as a 0-d literal, a value of
+        another dtype through ``convert_element_type``."""
+        dtype = _CANONICAL.get(dtype, dtype)
+        if not isinstance(x, _Val):
+            return self.literal(x, dtype)
+        if x.dtype == dtype:
+            return x
+        return self.emit("convert_element_type", [x], x.shape, dtype,
+                         new_dtype=dtype, weak_type=False, sharding=None)
+
+    def broadcast(self, v: _Val, shape, dims) -> _Val:
+        return self.emit("broadcast_in_dim", [v], shape, v.dtype, shape=list(shape),
+                         broadcast_dimensions=list(dims), sharding=None)
+
+    def reshape(self, v: _Val, shape) -> _Val:
+        if tuple(shape) == v.shape:
+            return v
+        return self.emit("reshape", [v], shape, v.dtype, new_sizes=list(shape),
+                         dimensions=None, sharding=None)
+
+    def binary(self, op: str, a, b, dtype: torch.dtype, shape, out_dtype=None) -> _Val:
+        """An elementwise op as jnp emits it: operands at one dtype, and of
+        two operands of rank > 0 the lower-ranked one gets leading unit
+        dims by ``broadcast_in_dim`` (rank-0 operands stay as they are)."""
+        a, b = self.at(a, dtype), self.at(b, dtype)
+        if a.shape and b.shape and len(a.shape) != len(b.shape):
+            rank = max(len(a.shape), len(b.shape))
+
+            def up(v):
+                n = rank - len(v.shape)
+                return v if n == 0 else self.broadcast(v, (1,) * n + v.shape, range(n, rank))
+
+            a, b = up(a), up(b)
+        return self.emit(op, [a, b], shape, out_dtype or dtype)
+
+    def reduce(self, op: str, v: _Val, axes) -> _Val:
+        axes = sorted({d % len(v.shape) for d in axes}) if v.shape else []
+        shape = tuple(s for i, s in enumerate(v.shape) if i not in axes)
+        return self.emit(op, [v], shape, v.dtype, axes=axes, out_sharding=None)
+
+    def conv(self, lhs, rhs, shape, dtype, *, strides, padding, lhs_dilation,
+             rhs_dilation, dnums) -> _Val:
+        return self.emit(
+            "conv_general_dilated", [lhs, rhs], shape, dtype,
+            window_strides=strides, padding=padding, lhs_dilation=lhs_dilation,
+            rhs_dilation=rhs_dilation, dimension_numbers=dnums, feature_group_count=1,
+            batch_group_count=1, precision=None, preferred_element_type=None,
+            out_sharding=None)
+
+    # -- the graph ---------------------------------------------------------
+
+    def node(self, target: str, args, kwargs, out):
+        """Lower one call; returns its value (a tuple for a multi-output
+        op, ``_POOL_INDICES`` for the pool's indices)."""
+        shape = tuple(out.shape) if isinstance(out, torch.Tensor) else ()
+        dtype = out.dtype if isinstance(out, torch.Tensor) else None
+        if target in _ALIASES:
+            return args[0]
+        if target in _ELEMENTWISE:
+            if kwargs.get("alpha", 1) != 1 or kwargs.get("rounding_mode") is not None:
+                raise PlanTranslationError(f"{target}: alpha/rounding_mode not lowered")
+            return self.binary(_ELEMENTWISE[target], args[0], args[1], dtype, shape)
+        if target in _COMPARISONS:
+            a, b = args[0], args[1]
+            ops = [x.dtype for x in (a, b) if isinstance(x, _Val)]
+            common = torch.promote_types(*ops) if len(ops) == 2 else ops[0]
+            return self.binary(_COMPARISONS[target], a, b, common, shape, torch.bool)
+        if target in _UNARY:
+            return self.emit(_UNARY[target], [args[0]], shape, dtype)
+        if target == "aten.relu.default":
+            return self.binary("max", args[0], 0, dtype, shape)
+        if target == "aten.where.self":
+            cond, t, f = args
+            cases = []
+            for x in (f, t):  # select_n(pred, on_false, on_true)
+                x = self.at(x, dtype)
+                if x.shape != shape:
+                    n = len(shape) - len(x.shape)
+                    x = self.broadcast(x, shape, range(n, len(shape)))
+                cases.append(x)
+            if cond.shape != shape:
+                cond = self.broadcast(cond, shape, range(len(shape) - len(cond.shape),
+                                                         len(shape)))
+            return self.emit("select_n", [cond, *cases], shape, dtype)
+        if target == "aten._to_copy.default":
+            return self.at(args[0], kwargs.get("dtype") or args[0].dtype)
+        if target in _RESHAPES:
+            return self.reshape(args[0], shape)
+        if target == "aten.permute.default":
+            rank = len(args[0].shape)
+            return self.emit("transpose", [args[0]], shape, dtype,
+                             permutation=[int(d) % rank for d in args[1]])
+        if target == "aten.expand.default":
+            x = args[0]
+            if x.shape == shape:
+                return x
+            return self.broadcast(x, shape, range(len(shape) - len(x.shape), len(shape)))
+        if target in ("aten.full.default", "aten.full_like.default",
+                      "aten.scalar_tensor.default"):
+            fill = args[0] if target == "aten.scalar_tensor.default" else args[1]
+            lit = self.literal(fill, dtype)
+            return lit if not shape else self.broadcast(lit, shape, ())
+        if target == "aten.mm.default":
+            a, b = (self.at(x, dtype) for x in args)
+            return self.emit("dot_general", [a, b], shape, dtype,
+                             dimension_numbers=[[[1], [0]], [[], []]], precision=None,
+                             preferred_element_type=dtype, out_sharding=None)
+        if target in ("aten.sum.dim_IntList", "aten.sum.default",
+                      "aten.mean.default", "aten.mean.dim"):
+            if kwargs.get("dtype") is not None:
+                raise PlanTranslationError(f"{target}: dtype= not lowered")
+            x = args[0]
+            dims = args[1] if len(args) > 1 and args[1] else range(len(x.shape))
+            keepdim = bool(args[2]) if len(args) > 2 else bool(kwargs.get("keepdim", False))
+            total = self.reduce("reduce_sum", x, dims)
+            if target.startswith("aten.mean"):
+                count = math.prod(x.shape) // max(math.prod(total.shape), 1)
+                total = self.binary("div", total, float(count), total.dtype, total.shape)
+            return self.reshape(total, shape) if keepdim else total
+        if target == "aten.argmax.default":
+            x = args[0]
+            dim = args[1] if len(args) > 1 else kwargs.get("dim")
+            if dim is None:
+                x, dim = self.reshape(x, (math.prod(x.shape),)), 0
+            dim = int(dim) % max(len(x.shape), 1)
+            red = tuple(s for i, s in enumerate(x.shape) if i != dim)
+            idx = self.emit("argmax", [x], red, torch.int32, axes=[dim],
+                            index_dtype=torch.int32)
+            return self.reshape(idx, shape)
+        if target == "aten._log_softmax.default":
+            return self.log_softmax(args[0], int(args[1]))
+        if target == "aten.convolution.default":
+            return self.convolution(out, *args)
+        if target == "aten.convolution_backward.default":
+            return self.convolution_backward(out, *args)
+        if target == "aten.max_pool2d_with_indices.default":
+            x = args[0]
+            p = self.pool_params(x, *args[1:])
+            val = self.emit("reduce_window_max", [x], out[0].shape, x.dtype,
+                            base_dilation=[1] * len(x.shape), **p)
+            return (val, _POOL_INDICES)
+        if target == _POOL_BACKWARD:
+            grad, x = args[0], args[1]
+            p = self.pool_params(x, *args[2:7])
+            if any(d != 1 for d in p.pop("window_dilation")):
+                raise PlanTranslationError(f"{target}: dilation has no select_and_scatter_add")
+            return self.emit("select_and_scatter_add", [grad, x], x.shape, grad.dtype,
+                             select_prim={"__repr__": "ge"}, **p)
+        raise PlanTranslationError(f"op {target} has no lowering to the op-list dialect")
+
+    def log_softmax(self, x: _Val, dim: int) -> _Val:
+        """``jax.nn.log_softmax``: shifted = x - max(x); shifted -
+        log(sum(exp(shifted)))."""
+        rank = len(x.shape)
+        dim %= rank
+        kept = [i for i in range(rank) if i != dim]
+        keep_shape = tuple(1 if i == dim else s for i, s in enumerate(x.shape))
+        m = self.broadcast(self.reduce("reduce_max", x, [dim]), keep_shape, kept)
+        shifted = self.emit("sub", [x, m], x.shape, x.dtype)
+        e = self.emit("exp", [shifted], x.shape, x.dtype)
+        s = self.reduce("reduce_sum", e, [dim])
+        lse = self.broadcast(self.emit("log", [s], s.shape, s.dtype), keep_shape, kept)
+        return self.emit("sub", [shifted, lse], x.shape, x.dtype)
+
+    def convolution(self, out, x, w, bias, stride, padding, dilation, transposed,
+                    output_padding, groups):
+        if transposed or groups != 1:
+            raise PlanTranslationError(
+                "aten.convolution: only groups=1 non-transposed convolutions are lowered")
+        nsp = len(x.shape) - 2
+        spec = list(range(nsp + 2))
+        y = self.conv(x, w, out.shape, out.dtype, strides=_pair(stride, nsp),
+                      padding=[[p, p] for p in _pair(padding, nsp)],
+                      lhs_dilation=[1] * nsp, rhs_dilation=_pair(dilation, nsp),
+                      dnums=[spec, spec, spec])
+        if bias is None:
+            return y
+        b = self.broadcast(bias, (1, bias.shape[0]) + (1,) * nsp, [1])
+        return self.emit("add", [y, b], y.shape, y.dtype)
+
+    def convolution_backward(self, out, g, x, w, bias_sizes, stride, padding, dilation,
+                             transposed, output_padding, groups, output_mask):
+        """The three gradients of an NCHW/OIHW convolution as JAX's conv
+        transpose rules emit them; entries ``output_mask`` leaves out are
+        not emitted."""
+        if transposed or groups != 1:
+            raise PlanTranslationError(
+                "aten.convolution_backward: only groups=1 non-transposed convolutions "
+                "are lowered")
+        nsp = len(x.shape) - 2
+        s, p, d = _pair(stride, nsp), _pair(padding, nsp), _pair(dilation, nsp)
+        k = w.shape[2:]
+        n_in, n_out = x.shape[2:], g.shape[2:]
+        spec = list(range(nsp + 2))
+        swap = [1, 0] + spec[2:]
+        grads = [None, None, None]
+        if output_mask[0]:
+            rev = self.emit("rev", [w], w.shape, w.dtype, dimensions=spec[2:])
+            pads = []
+            for i in range(nsp):
+                lo = d[i] * (k[i] - 1) - p[i]
+                pads.append([lo, n_in[i] + d[i] * (k[i] - 1) - 1 - (n_out[i] - 1) * s[i] - lo])
+            grads[0] = self.conv(g, rev, x.shape, g.dtype, strides=[1] * nsp, padding=pads,
+                                 lhs_dilation=s, rhs_dilation=d, dnums=[spec, swap, spec])
+        if output_mask[1]:
+            pads = [[p[i], (n_out[i] - 1) * s[i] + 1 - n_in[i] + d[i] * (k[i] - 1) - p[i]]
+                    for i in range(nsp)]
+            grads[1] = self.conv(x, g, w.shape, g.dtype, strides=d, padding=pads,
+                                 lhs_dilation=[1] * nsp, rhs_dilation=s,
+                                 dnums=[swap, swap, swap])
+        if output_mask[2]:
+            grads[2] = self.reduce("reduce_sum", g, [0] + spec[2:])
+        return tuple(grads)
+
+    @staticmethod
+    def pool_params(x: _Val, kernel, stride=(), padding=0, dilation=1, ceil_mode=False):
+        if ceil_mode:
+            raise PlanTranslationError("max_pool2d: ceil_mode is not lowered")
+        lead = len(x.shape) - 2
+        k = _pair(kernel, 2)
+        s = _pair(stride, 2) if stride else k
+        p = _pair(padding, 2)
+        return {
+            "window_dimensions": [1] * lead + k,
+            "window_strides": [1] * lead + s,
+            "padding": [[0, 0]] * lead + [[q, q] for q in p],
+            "window_dilation": [1] * lead + _pair(dilation, 2),
+        }
+
+
+def fx_to_oplist(exported_program) -> dict:
+    """Walk a ``torch.export`` program (after ``run_decompositions()``)
+    into the portable op-list dialect: ``{"constvars", "consts", "invars",
+    "eqns", "outvars"}`` with integer SSA ids, as ``jaxpr_to_oplist``
+    writes it for a jaxpr. Lifted tensor constants, parameters and buffers
+    become ``consts``. An ATen op with no lowering raises
+    :class:`PlanTranslationError` naming it."""
+    from torch.export.graph_signature import InputKind, OutputKind
+
+    ep = exported_program
+    sig = ep.graph_signature
+    low = _FxLowering()
+    placeholders = {n.name: n for n in ep.graph.nodes if n.op == "placeholder"}
+    vals: dict[Any, Any] = {}
+    constvars, consts, invars = [], [], []
+
+    def bind(spec):
+        node = placeholders[spec.arg.name]
+        meta = node.meta.get("val")
+        if not isinstance(meta, torch.Tensor):
+            raise PlanTranslationError(f"plan input {node.name} is not a tensor")
+        vid = low.fresh()
+        vals[node] = _Val({"var": vid}, meta.shape, meta.dtype)
+        return vid
+
+    for spec in sig.input_specs:
+        if spec.kind == InputKind.USER_INPUT:
+            continue
+        if spec.kind not in (InputKind.PARAMETER, InputKind.BUFFER, InputKind.CONSTANT_TENSOR):
+            raise PlanTranslationError(f"exported input kind {spec.kind} is not lowered")
+        value = (ep.constants[spec.target] if spec.kind == InputKind.CONSTANT_TENSOR
+                 else ep.state_dict[spec.target])
+        constvars.append(bind(spec))
+        consts.append(value.detach().cpu().numpy())
+    for spec in sig.input_specs:
+        if spec.kind == InputKind.USER_INPUT:
+            invars.append(bind(spec))
+    if any(spec.kind != OutputKind.USER_OUTPUT for spec in sig.output_specs):
+        raise PlanTranslationError("an exported program that mutates its inputs is not lowered")
+
+    def resolve_arg(a):
+        if isinstance(a, torch.fx.Node):
+            return vals[a]
+        if isinstance(a, (list, tuple)):
+            return type(a)(resolve_arg(x) for x in a)
+        return a
+
+    outvars: list = []
+    for node in ep.graph.nodes:
+        if node.op == "placeholder":
+            continue
+        if node.op == "output":
+            outs = resolve_arg(node.args[0])
+            for v in outs if isinstance(outs, (list, tuple)) else [outs]:
+                if not isinstance(v, _Val):
+                    raise PlanTranslationError(f"plan output {v!r} has no op-list value")
+                outvars.append(v.ref)
+            continue
+        if node.op != "call_function":
+            raise PlanTranslationError(f"graph node {node.op} {node.target} is not lowered")
+        args, kwargs = resolve_arg(node.args), resolve_arg(node.kwargs)
+        target = str(node.target)
+        if target == "<built-in function getitem>":
+            val = args[0][args[1]]
+            if val is None:
+                raise PlanTranslationError(f"{node.name} reads an output that was not computed")
+            vals[node] = val
+            continue
+        if target != _POOL_BACKWARD and any(
+                a is _POOL_INDICES for a in list(args) + list(kwargs.values())):
+            raise PlanTranslationError(
+                f"{target} reads max_pool2d_with_indices' indices, which have no "
+                "op-list value")
+        vals[node] = low.node(target, args, kwargs, node.meta.get("val"))
+    return {"constvars": constvars, "consts": consts, "invars": invars,
+            "eqns": low.eqns, "outvars": outvars}
+
+
 # --- variant registry -------------------------------------------------------
 
 

@@ -32,7 +32,7 @@ call.
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable
+from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
@@ -187,14 +187,25 @@ _METHOD_OPS: dict[type, set[str]] = {
 
 def _refuse_torch_blob(obj: Any) -> None:
     """A worker runs a plan's op list (not code) or an in-process live
-    ``fn``, never a ``torch_blob`` that came without one: loading it is
-    ``torch.export.load``, which can unpickle, and no transport here
+    ``fn``, never a plan whose only artifact is a ``torch_blob``: loading
+    it is ``torch.export.load``, which can unpickle, and no transport here
     authenticates the host that sent it."""
-    if isinstance(obj, Plan) and obj.fn is None and obj.torch_blob is not None:
+    if (isinstance(obj, Plan) and obj.fn is None and obj.oplist is None
+            and obj.torch_blob is not None):
         raise E.PlanInvalidError(
             "a worker does not run a torch_blob plan from a client: "
             "send a plan with an op list"
         )
+
+
+def run_received_plan(plan: Plan, args: Sequence[Any], device: torch.device) -> Any:
+    """Run a plan a worker or a node was sent: a live ``fn`` (in process
+    only), else its op list — never its ``torch_blob``, even when it
+    carries one beside the list."""
+    _refuse_torch_blob(plan)
+    if plan.fn is not None:
+        return plan(*args, device=device)
+    return plan.run_list(*args, device=device)
 
 
 def _is_array(v: Any) -> bool:
@@ -491,10 +502,9 @@ class VirtualWorker:
         plan = obj.value
         if not isinstance(plan, Plan):
             raise E.PlanNotFoundError(f"object {msg.plan_id} is not a Plan")
-        _refuse_torch_blob(plan)
         sources: list = [obj]
         args = [self._resolve(a, user, sources) for a in msg.args]
-        result = plan(*args, device=self.device)
+        result = run_received_plan(plan, args, self.device)
         stored = self.store.set_obj(
             result,
             id=msg.return_id,

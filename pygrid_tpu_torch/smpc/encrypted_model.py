@@ -24,9 +24,10 @@ privacy flow (SURVEY §3.5): the port's counterpart of
    weights, the input, or the output in the clear.
 
 The op-list is the JAX package's portable dialect: a plan built by the JAX
-package runs here as it does there. A plan built by the port carries no
-op-list (``oplist`` is None), and :meth:`EncryptedModel.predict` raises
-``PlanInvalidError`` for it. Discovery goes through the port's network
+package runs here as it does there, and so does one built by the port
+(:meth:`Plan.build` lowers its graph to the same list). A plan without an
+op-list makes :meth:`EncryptedModel.predict` raise ``PlanInvalidError``;
+its ``torch_blob`` is never run. Discovery goes through the port's network
 (:mod:`pygrid_tpu_torch.network`) or the JAX package's — they answer the
 same JSON — over :mod:`pygrid_tpu_torch.web.client`.
 """
@@ -467,7 +468,7 @@ class EncryptedModel:
         if oplist is None:
             raise PlanInvalidError(
                 "the plan carries no op-list: encrypted inference runs the "
-                "portable op-list of a plan built by the JAX package"
+                "plan's portable op-list"
             )
         sx = fix_prec_share_to_nodes(
             np.asarray(x, dtype=np.float32),

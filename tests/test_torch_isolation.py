@@ -13,6 +13,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -171,6 +172,21 @@ _BLOCKED_IMPORT = textwrap.dedent(
     finally:
         node.stop()
         network.stop()
+    # secure aggregation: a port-built plan run from its op list, a masked
+    # report envelope of tensors and the on-device simulation
+    from pygrid_tpu_torch.client.secagg import SecAggSession
+    from pygrid_tpu_torch.federated import secagg
+    from pygrid_tpu_torch.parallel import secagg_sim
+    from pygrid_tpu_torch.plans import Plan
+    from pygrid_tpu_torch.utils import prng
+    built = Plan(name="affine", fn=lambda x: x * 2.0 + 1.0).build(np.zeros((3,), np.float32))
+    assert built.run_list(np.ones(3, np.float32), device="cpu").tolist() == [3.0, 3.0, 3.0]
+    session = SecAggSession(None, "w0", "key")
+    session.clip_range, session.mask_set = 0.5, ["w0"]
+    assert len(secagg.decode_masked_diff(session.masked_blob([torch.ones(3)]))) == 1
+    q = np.arange(12, dtype=np.uint32).reshape(4, 3)
+    total = secagg_sim.masked_sum(prng.PRNGKey(0, device="cpu"), q, device="cpu")
+    assert (total.numpy() == q.sum(0)).all()
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("ok", len({_modules()!r}))
@@ -282,6 +298,16 @@ def test_entry_points_without_device_cpu_raise_on_a_gpu_less_host(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         run_worker("http://127.0.0.1:1", "m")
     assert PublicGridNetwork("http://127.0.0.1:1", device="cpu").device == torch.device("cpu")
+    # the SecAgg simulation's entry points
+    from pygrid_tpu_torch.parallel import secagg_sim
+    from pygrid_tpu_torch.utils import prng
+
+    key, q = prng.PRNGKey(0, device="cpu"), np.arange(6, dtype=np.uint32).reshape(2, 3)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        secagg_sim.masked_sum(key, q)
+    with pytest.raises(RuntimeError, match="no CUDA GPU"):
+        secagg_sim.simulate_secagg_round(key, np.zeros((2, 3), np.float32), 0.1)
+    assert (secagg_sim.masked_sum(key, q, device="cpu").numpy() == q.sum(0)).all()
 
 
 def test_plan_and_oplist_with_device_cuda_raise_on_a_gpu_less_host():

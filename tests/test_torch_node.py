@@ -399,9 +399,25 @@ def test_serve_inference_permissions_and_delete(grid, alice):
 
 def test_a_torch_blob_plan_is_not_run_for_inference(alice):
     built = Plan(name="neg", fn=torch.neg).build(torch.ones(1, 2))
-    assert alice.serve_model(built, "blob-plan", allow_remote_inference=True)["success"]
+    blob_only = Plan(name="neg", torch_blob=built.torch_blob, input_specs=built.input_specs)
+    assert alice.serve_model(blob_only, "blob-plan", allow_remote_inference=True)["success"]
     with pytest.raises(PyGridError, match="torch_blob"):
         alice.run_remote_inference("blob-plan", np.ones((1, 2), np.float32))
+
+
+def test_a_port_built_plan_runs_for_inference_from_its_op_list(alice, monkeypatch):
+    """The node's run_inference runs a port-built plan's op list and never
+    reaches torch.export.load (the node serves in this process)."""
+    built = Plan(name="neg", fn=torch.neg).build(torch.ones(1, 2))
+    assert built.oplist is not None
+
+    def refuse(*a, **k):
+        raise AssertionError("torch.export.load reached on the inference path")
+
+    monkeypatch.setattr(torch.export, "load", refuse)
+    assert alice.serve_model(built, "listed-plan", allow_remote_inference=True)["success"]
+    x = np.array([[1.0, -2.0]], np.float32)
+    np.testing.assert_array_equal(alice.run_remote_inference("listed-plan", x), -x)
 
 
 def test_http_serve_model_multipart_and_json(grid, alice):

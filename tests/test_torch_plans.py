@@ -469,11 +469,12 @@ def port_cnn_plan():
 
 def test_port_built_plan_variants_and_serde(port_cnn_plan):
     plan, args = port_cnn_plan
-    assert plan.is_built and plan.oplist is None and plan.exported_blob is None
+    assert plan.is_built and plan.oplist is not None and plan.exported_blob is None
     assert "convolution" in plan.code and "max_pool2d" in plan.code
     assert translate_plan(plan, "torchscript") == plan.torch_blob
+    assert translate_plan(plan, "list") is plan.oplist
     with pytest.raises(PlanTranslationError, match="no oplist"):
-        translate_plan(plan, "list")
+        translate_plan(Plan(name="blob-only", torch_blob=plan.torch_blob), "list")
     with pytest.raises(PlanTranslationError, match="unknown plan variant"):
         translate_plan(plan, "onnx")
     blob = serde.serialize(plan)

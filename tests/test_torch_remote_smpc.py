@@ -317,9 +317,41 @@ def test_encrypted_forward_launches_the_ring_kernel_16_times(monkeypatch, small_
     assert got.shape == (4, 4) and np.abs(got - want).max() <= SMALL_ATOL
 
 
+def test_port_built_plan_predicts_bit_identically_to_the_jax_built_plan(
+        monkeypatch, small_plan_blob):
+    """A CryptoNets forward built by the port (its op list from
+    fx_to_oplist) runs through EncryptedModel.predict on CPU workers to the
+    same output, bit for bit, as the JAX-built plan given the same dealer
+    seed and generator — and with the same 16 ring-kernel calls."""
+    calls = []
+    real = R.ring_matmul_kernel
+    monkeypatch.setattr(R, "ring_matmul_kernel", lambda a, b: calls.append(a.shape) or real(a, b))
+    port_plan = Plan(name="encrypted_forward", fn=cryptonets_forward)
+    port_plan.build(*[np.zeros(s, np.float32) for s in SMALL])
+    x, *weights = weights_for(SMALL)
+    outs = []
+    for plan in (serde.deserialize(small_plan_blob, device="cpu"), port_plan):
+        holders = [VirtualWorker(n, device="cpu") for n in HOLDERS]
+        dan = VirtualWorker("dan", device="cpu")
+        dan.crypto_provider = CryptoProvider(seed=3, device="cpu")
+        for h in holders:
+            dan.add_worker(h)
+        provider = RemoteCryptoProvider(dan)
+        g = torch.Generator().manual_seed(4)
+        shared = [fix_prec_share_to_nodes(w, holders, crypto_provider=provider, generator=g,
+                                          device="cpu") for w in weights]
+        calls.clear()
+        model = EncryptedModel(plan, shared, holders, provider, FixedPointEncoder(),
+                               device="cpu")
+        outs.append(model.predict(x, generator=g))
+        assert len(calls) == 16
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
 def test_predict_raises_for_a_plan_without_an_op_list():
-    plan = Plan(name="port-built", fn=cryptonets_forward)
-    plan.build(*[np.zeros(s, np.float32) for s in SMALL])
+    built = Plan(name="port-built", fn=cryptonets_forward)
+    built.build(*[np.zeros(s, np.float32) for s in SMALL])
+    plan = Plan(name="blob-only", torch_blob=built.torch_blob)
     assert plan.oplist is None
     w = VirtualWorker("alice", device="cpu")
     model = EncryptedModel(plan, [], [w, w], RemoteCryptoProvider(w), FixedPointEncoder(),

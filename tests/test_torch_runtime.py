@@ -360,17 +360,41 @@ def test_run_a_jax_built_plan_sent_as_a_frame(alice):
     np.testing.assert_allclose(_np(alice.store.get_obj(resp.id_at_location).value), x * 2 + 1)
 
 
-def test_port_built_plan_sent_as_a_frame_is_refused(alice, identity_plan):
+def _blob_only(plan):
+    """``plan`` with its torch_blob as its only artifact (no op list)."""
+    return Plan(name=plan.name, torch_blob=plan.torch_blob, input_specs=plan.input_specs)
+
+
+def test_a_torch_blob_only_plan_sent_as_a_frame_is_refused(alice, identity_plan):
     """A torch_blob loads through torch.export.load, which can unpickle: a
-    worker refuses one that arrives in a frame, and will not run one it
-    holds without a live fn."""
-    blob = serde.serialize(M.ObjectMessage(obj=identity_plan, id=779))
+    worker refuses a plan whose only artifact is one when it arrives in a
+    frame, and will not run one it holds without a live fn."""
+    blob = serde.serialize(M.ObjectMessage(obj=_blob_only(identity_plan), id=779))
     err = serde.deserialize(alice._recv_msg(blob), device="cpu")
     assert isinstance(err, M.ErrorResponse) and err.error_type == "PlanInvalidError"
     assert 779 not in alice.store
-    alice.store.set_obj(serde.deserialize(serde.serialize(identity_plan)), id=780)
+    alice.store.set_obj(_blob_only(identity_plan), id=780)
     with pytest.raises(PlanInvalidError):
         alice.recv_obj_msg(M.RunPlanMessage(plan_id=780, args=[np.ones(1, np.float32)]))
+
+
+def test_port_built_plan_sent_as_a_frame_runs_from_its_op_list(alice, monkeypatch):
+    """A plan built by the port carries an op list beside its torch_blob:
+    sent as a frame, a worker stores it and runs the list, and
+    torch.export.load is never reached."""
+    plan = Plan(name="affine", fn=lambda x: x * 2.0 + 1.0).build(np.zeros((3,), np.float32))
+    assert plan.oplist is not None and plan.torch_blob is not None
+
+    def refuse(*a, **k):
+        raise AssertionError("torch.export.load reached from a frame")
+
+    monkeypatch.setattr(torch.export, "load", refuse)
+    resp = serde.deserialize(alice._recv_msg(serde.serialize(M.ObjectMessage(obj=plan, id=781))),
+                             device="cpu")
+    assert isinstance(resp, M.PointerResponse)
+    x = np.array([1.0, 2.0, 3.0], np.float32)
+    resp = alice.recv_obj_msg(M.RunPlanMessage(plan_id=781, args=[x]))
+    np.testing.assert_array_equal(_np(alice.store.get_obj(resp.id_at_location).value), x * 2 + 1)
 
 
 def test_binary_frame_transport(alice):

@@ -296,7 +296,10 @@ def test_closed_engine_rejects_typed(params):
 
 
 def test_serving_and_profiler_telemetry_families_flow(engine):
-    engine.submit(np.array([[1, 2, 3]]), 3)
+    # twice: the second request hits the programs the first built, whatever
+    # ran on this module-scoped engine before (or nothing, under xdist)
+    for _ in range(2):
+        engine.submit(np.array([[1, 2, 3]]), 3)
     counters = {name for (name, _), _ in telemetry.counters().items()}
     for family in ("serving_requests_total", "serving_tokens_total", "serving_compiles_total"):
         assert family in counters, family
