@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-It takes no arguments and runs every phase, in order; any failure raises
-and the script exits non-zero:
+With no arguments it runs every phase, in order; any failure raises and
+the script exits non-zero:
 
 1. build    — compile the CUDA kernels from pygrid_tpu_torch/csrc (nvcc,
               sm_90a, one process per source) and print ptxas' report; the
@@ -135,6 +135,36 @@ and the script exits non-zero:
               through EncryptedModel.predict with phase datacentric's seeds:
               16 ring launches (counted in the kernels line), within
               MLP_ATOL of float64, bit-identical to the JAX-built plan's.
+17. mesh    — the multi-device plane on torch.distributed: one process
+              starts NCCL at world size 1 (a FileStore in a temporary
+              directory) and says so: every collective runs over one rank,
+              and no number is a multi-GPU number. Each path is timed (CUDA
+              events and host wall, medians) beside its single-device twin:
+              (a) make_sharded_fused_round on phase rounds' transformer in
+              bf16 against make_fused_round (bit-identical, else within bf16
+              tolerance), 4 launches of each flash kernel; (b)
+              make_sharded_round on the MLP against make_round; (c)
+              ring_attention and ulysses_attention (with flash_attention) at
+              [32, 512, 4, 128] bf16 causal against attention, then the
+              transformer forward with each as attn_fn against the local
+              forward (the ring's in f32, Ulysses' in bf16); (d) sharded_beaver
+              at bench_smpc's two configurations, exact against the ring
+              product, 4 ring launches a round (3 on a rank that holds no
+              party 0: d∘e is party 0's); (e) make_sharded_masked_sum at
+              16 clients x 1,199,882 words, bit-identical to masked_sum; (f)
+              make_fsdp_training_step (Adam), 3 steps on the transformer in
+              bf16 and f32 against the unsharded Adam update, with the flash
+              launches; (g) pipeline_apply over one 512-wide tanh stage at
+              16,384 rows in 4 microbatches against sequential_apply; (h)
+              apply_expert_parallel at d_model 512, d_ff 2048, 8 experts,
+              16,384 tokens, capacity factor 2.0, f32, against apply_dense.
+              Every kernel must launch on the mesh path; its launches join
+              the kernels line.
+
+``python3 chip_smoke.py --mesh-world N`` builds the kernels and runs only
+phase mesh, on N GPUs of one machine (one spawned process each, NCCL across
+them; (d) then deals N parties and (g) runs N stages): every rank checks its
+own results, rank 0 prints.
 
 Then it prints the kernels line, the card's name and power limit, and as
 its last line ``{"ok": true, "device": {...}}``. It imports nothing of JAX
@@ -2979,6 +3009,438 @@ def phase_secagg(dc_first, device="cuda") -> int:
     return _secagg_cryptonets(device, dc_first)
 
 
+# --------------------------------------------------------------------------
+# phase 17: mesh
+# --------------------------------------------------------------------------
+
+#: (d_model, d_ff, experts, tokens) of (h): the flagship transformer's
+#: widths (the JAX package publishes no MoE configuration), 16,384 tokens
+MESH_MOE = (512, 2048, 8, 16384)
+#: (width, rows, microbatches) of (g): one 512-wide tanh stage
+MESH_PIPE = (512, 16384, 4)
+MESH_LR_ADAM = 1e-3
+
+
+def _mesh_times(fn, n=3) -> tuple[float, float]:
+    """(CUDA-event ms, median host ms over ``n`` synchronised calls) of ``fn``."""
+    events = time_ms(fn, iters=1, repeats=n)
+    return events, statistics.median(_host_ms(fn)[1] for _ in range(n))
+
+
+def _mesh_line(tag, mesh_fn, twin_fn, twin_name, n=3) -> None:
+    m_ev, m_wall = _mesh_times(mesh_fn, n)
+    t_ev, t_wall = _mesh_times(twin_fn, n)
+    print(f"[mesh] {tag}: mesh path {m_ev:.3f} ms events / {m_wall:.3f} ms wall, {twin_name} "
+          f"{t_ev:.3f} / {t_wall:.3f} ms (medians of {n}; mesh / twin {m_wall / t_wall:.3f} by "
+          f"wall)")
+
+
+def _mesh_profile(tag, fn, top=5) -> None:
+    """Device busy time, idle share, launches and the top kernels of one
+    call of ``fn`` under torch.profiler."""
+    wall_us, kernels = profiled(fn)
+    busy = sum(e.self_device_time_total for e in kernels)
+    if busy == 0:
+        print(f"[mesh] {tag} profile: the profiler saw no device time: not measured")
+        return
+    top_k = sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]
+    print(f"[mesh] {tag} profile: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
+          f"idle share {1 - busy / wall_us:.4f}, {sum(e.count for e in kernels)} kernel "
+          "launches; top: " + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3:.3f} ms "
+                                       f"x{e.count}" for e in top_k))
+
+
+def _same_or_close(tag, got, want, dtype) -> str:
+    """'bit-identical', or the largest error within ``dtype``'s tolerance."""
+    if all(torch.equal(a, b) for a, b in zip(got, want)):
+        return "bit-identical"
+    err = max(_err(a, b, dtype, f"mesh {tag}") for a, b in zip(got, want))
+    return f"max abs err {err:.3e} (within {TOL[dtype]})"
+
+
+def _add(total: dict, counts: dict) -> None:
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+
+
+def _mesh_rounds(cfg, device, total) -> None:
+    """(a) the sharded fused round of the main path, (b) the sharded MLP round."""
+    from functools import partial
+
+    from pygrid_tpu_torch.models import mlp, transformer
+    from pygrid_tpu_torch.parallel import flash_attention as fa
+    from pygrid_tpu_torch.parallel import (make_fused_round, make_mesh, make_round,
+                                           make_sharded_fused_round, make_sharded_round)
+
+    mesh = make_mesh(axes=("clients",), device=device)
+    K, B = 8, 4
+    params, X, y = transformer_setup(cfg, K, B, device)
+    loss_fn = partial(transformer.loss_and_acc, cfg=cfg, attn_fn=fa.flash_attention,
+                      compute_dtype="bfloat16", ce_grad_dtype="bfloat16")
+    sharded, twin = make_sharded_fused_round(loss_fn, mesh), make_fused_round(loss_fn)
+    sharded(params, X, y, 0.1)  # warm-up
+    (p_m, loss_m, acc_m), counts, _ = counted(lambda: sharded(params, X, y, 0.1))
+    p_t, loss_t, acc_t = twin(params, X, y, 0.1)
+    check(_finite(loss_m, acc_m, *p_m), "mesh (a): non-finite result")
+    for name, n in counts.items():
+        check(device != "cuda" or n == cfg.n_layers,
+              f"mesh (a): {name} launched {n} times, expected {cfg.n_layers}")
+    _add(total, counts)
+    same = _same_or_close("(a)", [*p_m, loss_m, acc_m], [*p_t, loss_t, acc_t], torch.bfloat16)
+    print(f"[mesh] (a) make_sharded_fused_round, {cfg}, K={K} B={B}, bf16: loss "
+          f"{float(loss_m):.5f}, params and metrics against make_fused_round's: {same}; "
+          f"launches {counts}")
+    _mesh_line("(a) sharded fused round", lambda: sharded(params, X, y, 0.1),
+               lambda: twin(params, X, y, 0.1), "make_fused_round")
+
+    g = torch.Generator().manual_seed(2)
+    mparams = mlp.init(generator=g, device=device)
+    mX = torch.randn((8, 16, 784), generator=g).to(device)
+    my = torch.nn.functional.one_hot(torch.randint(0, 10, (8, 16), generator=g), 10)
+    my = my.float().to(device)
+    msharded, mtwin = make_sharded_round(mlp.training_step, mesh), make_round(mlp.training_step)
+    (mp, ml, ma), counts, _ = counted(lambda: msharded(mparams, mX, my, 0.1))
+    tp, tl, ta = mtwin(mparams, mX, my, 0.1)
+    same = _same_or_close("(b)", [*mp, ml, ma], [*tp, tl, ta], torch.float32)
+    print(f"[mesh] (b) make_sharded_round, MLP K=8 B=16: loss {float(ml):.5f}, against "
+          f"make_round: {same}; launches {counts}")
+    _mesh_line("(b) sharded MLP round", lambda: msharded(mparams, mX, my, 0.1),
+               lambda: mtwin(mparams, mX, my, 0.1), "make_round")
+
+
+def _mesh_attention(cfg, device, total) -> None:
+    """(c) ring and Ulysses (with the flash kernels) at the main path's
+    attention shape, then as the transformer's attn_fn."""
+    from functools import partial
+
+    from pygrid_tpu_torch.models import transformer
+    from pygrid_tpu_torch.parallel import attention, make_mesh, ring_attention, ulysses_attention
+    from pygrid_tpu_torch.parallel import flash_attention as fa
+
+    mesh = make_mesh(axes=("seq",), device=device)
+    shape = (32, cfg.max_len, cfg.n_heads, cfg.d_model // cfg.n_heads)
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(shape, generator=g).to(device, torch.bfloat16) for _ in range(3))
+    ref = attention(q, k, v, causal=True)
+    ring = ring_attention(q, k, v, mesh, causal=True)
+    uly = partial(ulysses_attention, mesh=mesh, causal=True, attn_fn=fa.flash_attention)
+    out, counts, _ = counted(lambda: uly(q, k, v))
+    _add(total, counts)
+    check(device != "cuda" or counts["flash_fwd"] == 1, f"mesh (c): Ulysses launches {counts}")
+    direct = "bit-identical" if torch.equal(out, fa.flash_attention(q, k, v, causal=True)) else \
+        "differs"
+    print(f"[mesh] (c) {list(shape)} bf16 causal: ring max abs err vs attention "
+          f"{_err(ring, ref, torch.bfloat16, 'mesh (c) ring'):.3e}, Ulysses+flash "
+          f"{_err(out, ref, torch.bfloat16, 'mesh (c) ulysses'):.3e} (to flash_attention "
+          f"itself: {direct}); launches {counts}")
+    _mesh_line("(c) ring attention", lambda: ring_attention(q, k, v, mesh, causal=True),
+               lambda: attention(q, k, v, causal=True), "attention")
+    _mesh_line("(c) Ulysses attention (flash)", lambda: uly(q, k, v),
+               lambda: fa.flash_attention(q, k, v, causal=True), "flash_attention")
+    _mesh_profile("(c) Ulysses attention (flash)", lambda: uly(q, k, v))
+
+    # the ring's block step rounds the unnormalised probabilities to bf16
+    # where attention rounds the normalised ones, and a bf16 forward carries
+    # that through every layer into the logits: the ring's forward is held
+    # to the local one in f32, Ulysses with the bf16 flash kernels in bf16
+    params, X, _ = transformer_setup(cfg, 8, 4, device, seed=4)
+    X = X.reshape(32, cfg.max_len)
+    ring = partial(ring_attention, mesh=mesh)
+    with torch.no_grad():
+        local_plain = transformer.apply(params, X, cfg, attn_fn=attention)
+        ring_logits = transformer.apply(params, X, cfg, attn_fn=ring)
+        local_flash = transformer.apply(params, X, cfg, attn_fn=fa.flash_attention,
+                                        compute_dtype="bfloat16")
+        uly_logits, counts, _ = counted(lambda: transformer.apply(
+            params, X, cfg, attn_fn=uly, compute_dtype="bfloat16"))
+    _add(total, counts)
+    check(device != "cuda" or counts["flash_fwd"] == cfg.n_layers,
+          f"mesh (c): the Ulysses forward's launches {counts}")
+    ring_same = _same_or_close("(c) ring forward", [ring_logits], [local_plain], torch.float32)
+    uly_same = _same_or_close("(c) Ulysses forward", [uly_logits], [local_flash], torch.bfloat16)
+    print(f"[mesh] (c) transformer forward [32, {cfg.max_len}]: ring as attn_fn (f32) against "
+          f"the local forward (attention): {ring_same}; Ulysses+flash (bf16) against the local "
+          f"forward (flash_attention): {uly_same}; launches {counts}")
+
+
+def _mesh_smpc(device, total) -> None:
+    """(d) sharded_beaver at bench_smpc's two configurations."""
+    from pygrid_tpu_torch.parallel import collectives as C
+    from pygrid_tpu_torch.parallel import make_mesh
+    from pygrid_tpu_torch.smpc import ring as R
+    from pygrid_tpu_torch.smpc import ring_matmul as rm
+    from pygrid_tpu_torch.smpc.kernels import batched_beaver, share_kernel
+    from pygrid_tpu_torch.smpc.sharded import make_sharded_open, sharded_beaver
+    from pygrid_tpu_torch.utils import prng
+
+    mesh = make_mesh(axes=("parties",), device=device)
+    open_ = make_sharded_open(mesh)
+    world = C.axis_size(mesh, "parties")
+    for B, P, N in SMPC_CONFIGS:
+        P = P if P % world == 0 else world  # the parties must split over the ranks
+        g = torch.Generator(device=device).manual_seed(B + 1)
+        x = torch.randint(0, 2**32, (B, N, N), generator=g, device=device)
+        y = torch.randint(0, 2**32, (B, N, N), generator=g, device=device)
+        x_sh, y_sh = share_kernel(g, x, P), share_kernel(g, y, P)  # [P, B, N, N]
+        key = prng.PRNGKey(B, device=device)
+        z, counts, secs = counted(lambda: sharded_beaver(mesh, key, x_sh, y_sh), "ring")
+        _add(total, counts)
+        # c = a∘b, d∘b_i and a_i∘e on every rank; d∘e on party 0's rank only
+        want = 4 if C.axis_index(mesh, "parties") == 0 else 3
+        check(device != "cuda" or counts["ring_matmul"] == want,
+              f"mesh (d) B={B} N={N}: {counts['ring_matmul']} ring launches, expected {want}")
+        opened = open_(z)
+        check(torch.equal(opened, rm.ring_matmul_reference(x, y)),
+              f"mesh (d) B={B} N={N}: the round does not open to x @ y mod 2^64")
+        check(np.array_equal(R.from_ring(opened[0]),
+                             _np_u64_matmul(R.from_ring(x[0]), R.from_ring(y[0]))),
+              f"mesh (d) B={B} N={N}: the round differs from numpy uint64")
+        print(f"[mesh] (d) sharded_beaver B={B} P={P} [{N}, {N}]: opens to x @ y mod 2^64 "
+              f"(plain on the card, numpy element 0), {secs * 1e3:.3f} ms first round, "
+              f"launches {counts}")
+        xb, yb = x_sh.transpose(0, 1), y_sh.transpose(0, 1)  # phase smpc's [B, P, ...]
+        _mesh_line(f"(d) Beaver round B={B} [{N}, {N}]",
+                   lambda: sharded_beaver(mesh, key, x_sh, y_sh),
+                   lambda: batched_beaver(g, xb, yb, n_parties=P), "batched_beaver")
+        _mesh_profile(f"(d) Beaver round B={B} [{N}, {N}]",
+                      lambda: sharded_beaver(mesh, key, x_sh, y_sh))
+
+
+def _mesh_secagg(device) -> None:
+    """(e) the SecAgg simulation's masked sum over the mesh."""
+    from pygrid_tpu_torch.models import cnn
+    from pygrid_tpu_torch.parallel import make_mesh, make_sharded_masked_sum, masked_sum
+    from pygrid_tpu_torch.utils import prng
+
+    n = sum(int(np.prod(s)) for s in cnn.PARAM_SHAPES)
+    g = torch.Generator(device=device).manual_seed(6)
+    words = torch.randint(0, 2**32, (SIM_CLIENTS, n), generator=g, device=device)
+    key = prng.PRNGKey(5, device=device)
+    sharded = make_sharded_masked_sum(make_mesh(axes=("clients",), device=device))
+    got = sharded(key, words)
+    want = masked_sum(key, words, device=device)
+    check(torch.equal(got, want), "mesh (e): the mesh's masked sum differs from masked_sum")
+    plain = words.sum(dim=0) & 0xFFFFFFFF
+    check(torch.equal(got, plain), "mesh (e): the masked sum is not the plain sum")
+    print(f"[mesh] (e) make_sharded_masked_sum, {SIM_CLIENTS} clients x {n} words: "
+          f"bit-identical to masked_sum and the plain sum")
+    _mesh_line("(e) masked sum", lambda: sharded(key, words),
+               lambda: masked_sum(key, words, device=device), "masked_sum")
+
+
+def _adam_reference(loss_fn, params, X, y, lr, n_steps, b1=0.9, b2=0.999, eps=1e-8):
+    """The unsharded full-batch Adam update, written out."""
+    p = [t.detach().clone() for t in params]
+    m = [torch.zeros_like(t) for t in p]
+    v = [torch.zeros_like(t) for t in p]
+    for t in range(1, n_steps + 1):
+        leaves = [q.requires_grad_() for q in p]
+        loss, _ = loss_fn(leaves, X, y)
+        grads = torch.autograd.grad(loss, leaves)
+        step_t = torch.tensor(float(t), device=p[0].device)
+        bc1 = 1.0 - torch.pow(torch.tensor(b1, device=p[0].device), step_t)
+        bc2 = 1.0 - torch.pow(torch.tensor(b2, device=p[0].device), step_t)
+        m = [b1 * mi + (1.0 - b1) * gi for mi, gi in zip(m, grads)]
+        v = [b2 * vi + (1.0 - b2) * gi * gi for vi, gi in zip(v, grads)]
+        p = [q.detach() - lr * (mi / bc1) / (torch.sqrt(vi / bc2) + eps)
+             for q, mi, vi in zip(p, m, v)]
+    return p
+
+
+def _mesh_fsdp(cfg, device, total) -> None:
+    """(f) the FSDP Adam step on the main path's transformer, 3 steps."""
+    from functools import partial
+
+    from pygrid_tpu_torch.models import transformer
+    from pygrid_tpu_torch.parallel import flash_attention as fa
+    from pygrid_tpu_torch.parallel import make_fsdp_training_step, make_mesh, unshard_params
+
+    mesh = make_mesh(axes=("fsdp",), device=device)
+    params, X, y = transformer_setup(cfg, 8, 4, device, seed=5)
+    X, y = X.reshape(32, cfg.max_len), y.reshape(32, cfg.max_len)
+    for cd, dtype in (("bfloat16", torch.bfloat16), (None, torch.float32)):
+        loss_fn = partial(transformer.loss_and_acc, cfg=cfg, attn_fn=fa.flash_attention,
+                          compute_dtype=cd, ce_grad_dtype=cd)
+        init_state, step = make_fsdp_training_step(loss_fn, params, mesh, optimizer="adam")
+
+        def run():
+            state, losses = init_state(params), []
+            for _ in range(3):
+                state, loss, _ = step(state, X, y, MESH_LR_ADAM)
+                losses.append(float(loss))
+            return state, losses
+
+        (state, losses), counts, secs = counted(run)
+        _add(total, counts)
+        for name, n in counts.items():
+            check(device != "cuda" or n == 3 * cfg.n_layers,
+                  f"mesh (f) {cd}: {name} launched {n} times, expected {3 * cfg.n_layers}")
+        full = unshard_params(state["shards"], params, mesh)
+        ref = _adam_reference(loss_fn, params, X, y, MESH_LR_ADAM, 3)
+        same = _same_or_close(f"(f) {cd}", full, ref, dtype)
+        print(f"[mesh] (f) make_fsdp_training_step (Adam), {cfg}, batch [32, {cfg.max_len}], "
+              f"compute {cd or 'float32'}: losses {[round(x, 5) for x in losses]}, 3 steps "
+              f"{secs * 1e3:.1f} ms; params against the unsharded Adam update: {same}; "
+              f"launches {counts}")
+        state0 = init_state(params)
+        _mesh_line(f"(f) FSDP Adam step, {cd or 'float32'}",
+                   lambda: step(state0, X, y, MESH_LR_ADAM),
+                   lambda: _adam_reference(loss_fn, params, X, y, MESH_LR_ADAM, 1),
+                   "the unsharded Adam step")
+        _mesh_profile(f"(f) FSDP Adam step, {cd or 'float32'}",
+                      lambda: step(state0, X, y, MESH_LR_ADAM))
+
+
+def _mesh_pipeline(device) -> None:
+    """(g) pipeline_apply, one stage a rank."""
+    from pygrid_tpu_torch.parallel import collectives as C
+    from pygrid_tpu_torch.parallel import make_mesh, pipeline_apply, sequential_apply
+
+    width, rows, micro = MESH_PIPE
+    mesh = make_mesh(axes=("stage",), device=device)
+    n = C.axis_size(mesh, "stage")
+    g = torch.Generator().manual_seed(7)
+    params = ((torch.randn((n, width, width), generator=g) / width**0.5).to(device),
+              (torch.randn((n, width), generator=g) * 0.1).to(device))
+    x = torch.randn((rows, width), generator=g).to(device)
+    stage = lambda p, h: torch.tanh(h @ p[0] + p[1])  # noqa: E731
+    got = pipeline_apply(stage, params, x, mesh, n_microbatches=micro)
+    want = sequential_apply(stage, params, x)
+    print(f"[mesh] (g) pipeline_apply, {n} {width}-wide tanh stage(s), {rows} rows in {micro} "
+          f"microbatches, f32: against sequential_apply "
+          f"{_same_or_close('(g)', [got], [want], torch.float32)}")
+    _mesh_line("(g) pipeline", lambda: pipeline_apply(stage, params, x, mesh,
+                                                      n_microbatches=micro),
+               lambda: sequential_apply(stage, params, x), "sequential_apply")
+
+
+def _mesh_moe(device) -> None:
+    """(h) the expert-parallel MoE against the dense reference."""
+    from pygrid_tpu_torch.models import moe
+    from pygrid_tpu_torch.parallel import collectives as C
+    from pygrid_tpu_torch.parallel import make_mesh
+
+    d, ff, E, T = MESH_MOE
+    g = torch.Generator().manual_seed(8)
+    params = moe.init(d, ff, E, generator=g, device=device)
+    x = torch.randn((T, d), generator=g).to(device)
+    mesh = make_mesh(axes=("expert",), device=device)
+    n = C.axis_size(mesh, "expert")
+    capacity = -(-(T // n) * 2 // E)  # a rank's bucket for each expert
+    idx = torch.softmax(x @ params[0], -1).argmax(-1).view(n, -1)
+    load = max(int(torch.bincount(blk, minlength=E).max()) for blk in idx)
+    check(load <= capacity, f"mesh (h): an expert gets {load} tokens of a rank's block, past "
+                            f"its capacity {capacity}: the dense check needs no drop")
+    got = moe.apply_expert_parallel(params, x, mesh, capacity_factor=2.0)
+    want = moe.apply_dense(params, x)
+    mb = sum(p.numel() for p in params[1:]) * 4 / 1e6
+    print(f"[mesh] (h) apply_expert_parallel d_model {d} d_ff {ff}, {E} experts ({mb:.1f} MB), "
+          f"{T} tokens over {n} rank(s), capacity {capacity} a rank (most loaded {load}), f32: "
+          f"against apply_dense {_same_or_close('(h)', [got], [want], torch.float32)}")
+    _mesh_line("(h) expert-parallel MoE",
+               lambda: moe.apply_expert_parallel(params, x, mesh, capacity_factor=2.0),
+               lambda: moe.apply_dense(params, x), "apply_dense")
+    _mesh_profile("(h) expert-parallel MoE",
+                  lambda: moe.apply_expert_parallel(params, x, mesh, capacity_factor=2.0))
+
+
+def phase_mesh(device="cuda", rank=0, world=1, store_dir=None) -> dict:
+    """The multi-device plane: this process is ``rank`` of a torch.distributed
+    world of ``world`` (NCCL on the card, gloo on the CPU) that meets
+    through a FileStore in ``store_dir`` (a temporary directory for a
+    world of one), with its DeviceMeshes, (a)-(h) each beside its
+    single-device twin. Returns each kernel's launches on this rank."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    tmp = store_dir or tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    backend = "nccl" if device == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(f"{tmp}/store", world), rank=rank,
+                            world_size=world)
+    total: dict = {}
+    t0 = time.perf_counter()
+    try:
+        if world == 1:
+            print(f"[mesh] world size 1 on 1 GPU: collectives are {backend.upper()} calls over "
+                  "one rank; no multi-GPU number")
+            print("[mesh] ppermute at world size 1: ring attention makes no rotation and a "
+                  "one-stage pipeline has an empty stage chain, so the card sends and receives "
+                  "nothing; psum, all-gather, reduce-scatter and all-to-all run as collectives")
+        else:
+            print(f"[mesh] world size {world}, one process and one device a rank: collectives "
+                  f"are {backend.upper()} calls across {world} devices; rank 0 prints")
+        cfg = full_config()
+        _mesh_rounds(cfg, device, total)
+        _mesh_attention(cfg, device, total)
+        _mesh_smpc(device, total)
+        _mesh_secagg(device)
+        _mesh_fsdp(cfg, device, total)
+        _mesh_pipeline(device)
+        _mesh_moe(device)
+    finally:
+        dist.destroy_process_group()
+        if store_dir is None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    for name in KERNELS:
+        check(device != "cuda" or total.get(name, 0) > 0,
+              f"mesh: {name} was not launched on the mesh path")
+    print(f"[mesh] phase mesh {time.perf_counter() - t0:.1f} s; launches on the mesh path "
+          f"(rank {rank}) {total}")
+    return total
+
+
+def _mesh_rank(rank, world, store_dir, device) -> None:
+    """One rank of :func:`mesh_world`: only rank 0 prints."""
+    import os
+
+    if rank:
+        sys.stdout = open(os.devnull, "w")
+    if device == "cuda":
+        torch.cuda.set_device(rank)
+    phase_mesh(device, rank=rank, world=world, store_dir=store_dir)
+
+
+def mesh_world(world: int, device="cuda", timeout=300) -> None:
+    """Phase mesh on ``world`` devices of one machine, one spawned process
+    each (``python3 chip_smoke.py --mesh-world 4`` on a four-GPU machine):
+    the kernels are built here first, then every rank runs (a)-(h) with the
+    whole inputs and checks its own results. Fails, and stops every rank,
+    as soon as one rank fails (the others would wait in a collective) or
+    after ``timeout`` seconds."""
+    import multiprocessing
+    import shutil
+    import tempfile
+
+    if device == "cuda":
+        check(torch.cuda.device_count() >= world,
+              f"{world} ranks need {world} GPUs, this machine has {torch.cuda.device_count()}")
+        phase_build()
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_world_")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_mesh_rank, args=(r, world, store_dir, device))
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            time.sleep(0.5)
+        codes = [p.exitcode for p in procs]
+        check(all(c == 0 for c in codes),
+              f"mesh world of {world}: rank exit codes {codes} (None: still running, stopped)")
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    print(f"[mesh] world of {world}: every rank passed")
+
+
 def main() -> int:
     check(torch.cuda.is_available(), "no CUDA GPU: chip_smoke.py runs on the card only")
     import pygrid_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
@@ -2987,6 +3449,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    if sys.argv[1:2] == ["--mesh-world"]:
+        mesh_world(int(sys.argv[2]))
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     phase_build()
     errs = phase_kernels()
@@ -3007,6 +3476,8 @@ def main() -> int:
     secagg_launches = phase_secagg(dc_first)
     launches["ring_matmul"] = (smpc_launches + mlp_launches + dc_launches + grid_launches
                                + secagg_launches)
+    for name, n in phase_mesh().items():
+        launches[name] += n
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -3,7 +3,9 @@
 The JAX package's params come across as numpy arrays — for example
 ``[np.asarray(p) for p in transformer.init(key, cfg)]`` — and go back the
 same way, so a parity test hands both packages the same weights. Each
-array's shape is checked against the model's flat layout first.
+array's shape is checked against the model's flat layout first. A mixture
+of experts (``moe=(d_model, d_ff, n_experts)``) crosses as its whole list;
+an expert-parallel apply cuts each rank's block of experts from it.
 
 Ring values (shares, Beaver triples, truncation pairs) cross the same way:
 the JAX package holds one as a ``Ring64(lo, hi)`` pair of uint32 arrays,
@@ -20,20 +22,25 @@ import torch
 
 from pygrid_tpu_torch.device import resolve
 from pygrid_tpu_torch.models import cnn as cnn_model
-from pygrid_tpu_torch.models import mlp, transformer
+from pygrid_tpu_torch.models import mlp, moe as moe_model, transformer
 
 
 def expected_shapes(
     cfg: transformer.TransformerConfig | None = None,
     mlp_sizes: Sequence[int] | None = None,
     cnn: bool = False,
+    moe: tuple[int, int, int] | None = None,
 ) -> list[tuple[int, ...]]:
     """The flat param shapes of a transformer ``cfg``, an MLP of
-    ``mlp_sizes`` or the MNIST CNN (exactly one of the three)."""
-    if (cfg is not None) + (mlp_sizes is not None) + bool(cnn) != 1:
-        raise ValueError("pass exactly one of cfg (transformer), mlp_sizes (MLP) or cnn=True")
+    ``mlp_sizes``, the MNIST CNN or a mixture of experts ``moe=(d_model,
+    d_ff, n_experts)`` (exactly one of the four)."""
+    if (cfg is not None) + (mlp_sizes is not None) + bool(cnn) + (moe is not None) != 1:
+        raise ValueError("pass exactly one of cfg (transformer), mlp_sizes (MLP), cnn=True "
+                         "or moe=(d_model, d_ff, n_experts)")
     if cfg is not None:
         return transformer.param_shapes(cfg)
+    if moe is not None:
+        return moe_model.param_shapes(*moe)
     if cnn:
         return list(cnn_model.PARAM_SHAPES)
     return mlp.param_shapes(mlp_sizes)
@@ -54,11 +61,12 @@ def params_from_numpy(
     cfg: transformer.TransformerConfig | None = None,
     mlp_sizes: Sequence[int] | None = None,
     cnn: bool = False,
+    moe: tuple[int, int, int] | None = None,
 ) -> list[torch.Tensor]:
     """numpy params → tensors on ``device`` (copies; dtypes kept)."""
     dev = resolve(device)
     arrays = [np.asarray(a) for a in arrays]
-    _check([a.shape for a in arrays], expected_shapes(cfg, mlp_sizes, cnn))
+    _check([a.shape for a in arrays], expected_shapes(cfg, mlp_sizes, cnn, moe))
     return [torch.from_numpy(np.array(a, copy=True)).to(dev) for a in arrays]
 
 
@@ -68,9 +76,10 @@ def params_to_numpy(
     cfg: transformer.TransformerConfig | None = None,
     mlp_sizes: Sequence[int] | None = None,
     cnn: bool = False,
+    moe: tuple[int, int, int] | None = None,
 ) -> list[np.ndarray]:
     """Tensors → numpy arrays on the host (dtypes kept)."""
-    _check([tuple(p.shape) for p in params], expected_shapes(cfg, mlp_sizes, cnn))
+    _check([tuple(p.shape) for p in params], expected_shapes(cfg, mlp_sizes, cnn, moe))
     return [p.detach().cpu().numpy() for p in params]
 
 

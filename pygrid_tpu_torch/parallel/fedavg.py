@@ -8,8 +8,11 @@ clients' new params — the reference's reassociation of
 ``params - mean_k(diff_k)``, so no per-client diff tensor exists. A JAX
 ``scan`` over local steps or rounds is a Python loop here.
 
-``make_sharded_round`` (the client axis over a mesh) waits for the
-multi-device slice.
+:func:`make_sharded_round` splits the client axis over a mesh axis: each
+rank trains its block of clients, and the new global params are a
+``pmean`` of the block means (one all-reduce of their concatenation).
+Local training stays local: each rank's autograd sees only its clients,
+and the explicit ``pmean`` is the only collective.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from __future__ import annotations
 from typing import Callable, Sequence
 
 import torch
+
+from pygrid_tpu_torch.parallel import collectives as C
 
 
 def _client_update(
@@ -65,6 +70,29 @@ def make_round(training_step: Callable, local_steps: int = 1) -> Callable:
         return _mean_round(
             training_step, params, client_X, client_y, lr, local_steps
         )
+
+    return round_fn
+
+
+def make_sharded_round(
+    training_step: Callable,
+    mesh,
+    local_steps: int = 1,
+    axis: str = "clients",
+) -> Callable:
+    """FedAvg round with the client axis split over ``axis`` of ``mesh``.
+
+    ``round_fn(params, client_X [K,...], client_y [K,...], lr)`` takes the
+    whole client batch on every rank (K must divide by the axis size),
+    trains the rank's block of clients, and returns the replicated
+    ``(new_params, mean_loss, mean_acc)``: the block mean then a
+    ``pmean`` over the axis equals the global mean (equal blocks)."""
+
+    def round_fn(params, client_X, client_y, lr):
+        X, y = C.shard(mesh, axis, client_X, client_y)
+        new_p, loss, acc = _mean_round(training_step, params, X, y, lr, local_steps)
+        *new_params, loss, acc = C.pmean_many([*new_p, loss, acc], mesh, axis)
+        return new_params, loss, acc
 
     return round_fn
 

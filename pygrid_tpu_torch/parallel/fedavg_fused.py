@@ -21,7 +21,13 @@ mean gradient. ``loss_fn`` must be a mean over its batch rows (every
 bundled model's is) for the merged batch to equal the client mean.
 
 Scope as in the reference: plain SGD, the update rule linear in the
-gradient. ``make_sharded_fused_round`` waits for the multi-device slice.
+gradient.
+
+:func:`make_sharded_fused_round` splits the client axis over a mesh axis:
+each rank runs its block's local steps and fused final gradient, and the
+aggregation is one all-reduce of the already-reduced gradients (and of
+the block-mean params when ``local_steps > 1``): O(|params|) bytes on the
+wire, never O(K·|params|).
 """
 
 from __future__ import annotations
@@ -29,6 +35,8 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+from pygrid_tpu_torch.parallel import collectives as C
 
 
 def _grad(loss_fn: Callable, params, X, y):
@@ -143,6 +151,50 @@ def make_fused_rounds(
         return p, torch.stack(losses), torch.stack(accs)
 
     return rounds_fn
+
+
+def make_sharded_fused_round(
+    loss_fn: Callable,
+    mesh,
+    local_steps: int = 1,
+    axis: str = "clients",
+    carry_dtype: torch.dtype | None = None,
+) -> Callable:
+    """Fused-aggregation FedAvg round with the client axis split over
+    ``axis`` of ``mesh``: :func:`make_fused_round`'s contract, the whole
+    client batch on every rank (K must divide by the axis size) and the
+    replicated ``(new_params, mean_loss, mean_acc)`` back.
+
+    Each rank's autograd sees only its block of clients (no implicit sum
+    of gradients across ranks); the block-mean gradients, loss and acc,
+    and with ``local_steps > 1`` the block-mean params, cross ranks in one
+    ``pmean``. The final combine uses the replicated params and lr."""
+    if local_steps < 1:
+        raise ValueError("local_steps must be >= 1")
+
+    def round_fn(params, client_X, client_y, lr):
+        X, y = C.shard(mesh, axis, client_X, client_y)
+        p = [t.detach() for t in params]
+        if local_steps > 1:
+            p_k = [
+                _sgd_steps(loss_fn, p, X[i], y[i], lr, local_steps - 1, carry_dtype=carry_dtype)
+                for i in range(X.shape[0])
+            ]
+            batched = True
+        else:
+            p_k, batched = p, False
+        loss, acc, g = _fused_grad_and_metrics(loss_fn, p_k, batched, X, y)
+        local = list(g) + [loss, acc]
+        if batched:
+            local += [torch.stack(ps).mean(0) for ps in zip(*p_k)]
+        mean = C.pmean_many(local, mesh, axis)
+        n = len(p)
+        g, (loss, acc) = mean[:n], mean[n: n + 2]
+        mean_p = mean[n + 2:] if batched else p
+        new_p = [mp - lr * gi for mp, gi in zip(mean_p, g)]
+        return new_p, loss, acc
+
+    return round_fn
 
 
 def make_fused_round(

@@ -14,9 +14,15 @@ carried in int64 tensors, masked with ``& 0xFFFFFFFF`` after every add and
 subtract (wraparound is the group operation).
 
 Self-masks (``b_i``) are omitted, as in the reference: simulated clients
-cannot drop between the mask and the sum. The mesh path
-(``make_sharded_masked_sum``, ``simulate_secagg_round(mesh=...)``) waits
-for the port's ``parallel/mesh.py``.
+cannot drop between the mask and the sum.
+
+The mesh path (:func:`make_sharded_masked_sum`,
+``simulate_secagg_round(mesh=...)``) splits the clients over a mesh axis:
+each rank masks its own block of clients (the pair keys derive from the
+clients' global indices, so building the masks needs no communication) and
+the server's "receive" is one collective sum, in which the masks cancel.
+The sum runs on the int64 words (gloo has no uint32 reduction), then
+``& 0xFFFFFFFF``: bit for bit the single-device :func:`masked_sum`.
 """
 
 from __future__ import annotations
@@ -27,12 +33,11 @@ import numpy as np
 import torch
 
 from pygrid_tpu_torch.device import resolve
+from pygrid_tpu_torch.parallel import collectives as C
+from pygrid_tpu_torch.parallel.mesh import mesh_device
 from pygrid_tpu_torch.utils import prng
 
 _MASK = 0xFFFFFFFF
-
-_NO_MESH = ("the mesh path of the SecAgg simulation waits for the port's "
-            "parallel/mesh.py (ROADMAP queue 1, item 5: multi-device)")
 
 
 def _pair_keys(key: torch.Tensor, i: int, js: torch.Tensor) -> torch.Tensor:
@@ -83,8 +88,28 @@ def masked_sum(
 
 
 def make_sharded_masked_sum(mesh: Any, axis: str = "clients"):
-    """The mesh path: not ported yet."""
-    raise NotImplementedError(_NO_MESH)
+    """The mesh path: the clients of the whole batch ``quantized [K, ...]``
+    split over ``axis`` (K must divide by its size); each rank masks and
+    sums its own block, and one collective sum adds the blocks.
+
+    Returns ``fn(key, quantized) -> sum [...]`` (int64 words in
+    [0, 2^32)), replicated on every rank."""
+
+    def run(key: torch.Tensor, quantized: Any) -> torch.Tensor:
+        dev = mesh_device(mesh)
+        q = _as_words(quantized, dev)
+        K, shape = q.shape[0], tuple(q.shape[1:])
+        n = C.axis_size(mesh, axis)
+        if K % n:
+            raise ValueError(f"{K} clients do not split over {n} ranks of axis {axis!r}")
+        per, base = K // n, C.axis_index(mesh, axis) * (K // n)
+        key = key.to(dev)
+        block = q[base: base + per]
+        masks = torch.stack([client_mask(key, base + i, K, shape) for i in range(per)])
+        local = (block + masks).sum(dim=0) & _MASK
+        return C.psum(local, mesh, axis) & _MASK
+
+    return run
 
 
 def simulate_secagg_round(
@@ -97,16 +122,22 @@ def simulate_secagg_round(
     """End-to-end simulated round for a ``[K, ...]`` float diff batch:
     quantise (host, shared scale) → mask + sum on ``device`` → dequantise
     the mean. Bit-identical to summing the plaintext quantised diffs — the
-    masks never meet the result."""
-    if mesh is not None:
-        raise NotImplementedError(_NO_MESH)
+    masks never meet the result. With ``mesh``, the clients split over its
+    ``"clients"`` axis (:func:`make_sharded_masked_sum`) on the mesh's
+    device, which must be ``device``."""
     from pygrid_tpu_torch.federated import secagg
 
+    dev = resolve(device)
     if isinstance(diffs, torch.Tensor):
         diffs = diffs.detach().cpu().numpy()
     diffs = np.asarray(diffs)
     K = diffs.shape[0]
     quantized = np.stack([secagg.quantize([d], clip_range, K)[0] for d in diffs])
-    total = masked_sum(key, quantized, device=device)
+    if mesh is None:
+        total = masked_sum(key, quantized, device=dev)
+    else:
+        if mesh_device(mesh).type != dev.type:
+            raise ValueError(f"the mesh lives on {mesh.device_type}, not on {dev}")
+        total = make_sharded_masked_sum(mesh)(key, quantized)
     words = total.cpu().numpy().astype(np.uint32)
     return secagg.dequantize_sum([words], clip_range, K, K)[0]

@@ -190,3 +190,31 @@ def ring_random(generator: torch.Generator, shape) -> torch.Tensor:
     lo = torch.randint(0, 1 << 32, shape, generator=generator,
                        dtype=torch.int64, device=dev)
     return hi * (1 << 32) + lo
+
+
+# --- collective ring sum (the mesh-sharded "open") ---------------------------
+
+
+def ring_psum(r: torch.Tensor, mesh, axis: str, local_axis: int | None = 0) -> torch.Tensor:
+    """Exact sum mod 2^64 over ``local_axis`` *and* the mesh axis ``axis``:
+    the collective "open" of shares whose party axis is split over ``axis``.
+
+    A collective's reduction of raw int64 words may overflow, and signed
+    overflow is no guarantee there (NCCL reduces in C arithmetic, where it
+    is undefined). So each element splits into four 16-bit limbs held in
+    int64, as the reference's ``ring_psum`` splits its u32 halves: their
+    sums stay below 2^63 for up to 2^47 parties, one all-reduce of the
+    stacked limbs is exact, and the carries propagate once, locally,
+    after it."""
+    from pygrid_tpu_torch.parallel import collectives as C
+
+    limbs = torch.stack([(r >> s) & _MASK16 for s in (0, 16, 32, 48)])
+    if local_axis is not None:
+        limbs = limbs.sum(dim=local_axis + 1)
+    limbs = C.psum(limbs, mesh, axis)
+    out, carry = torch.zeros_like(limbs[0]), None
+    for i in range(4):
+        c = limbs[i] if carry is None else limbs[i] + carry
+        out |= (c & _MASK16) << (16 * i)
+        carry = c >> 16
+    return out

@@ -176,6 +176,7 @@ _BLOCKED_IMPORT = textwrap.dedent(
     # report envelope of tensors and the on-device simulation
     from pygrid_tpu_torch.client.secagg import SecAggSession
     from pygrid_tpu_torch.federated import secagg
+    from pygrid_tpu_torch import parallel
     from pygrid_tpu_torch.parallel import secagg_sim
     from pygrid_tpu_torch.plans import Plan
     from pygrid_tpu_torch.utils import prng
@@ -187,6 +188,37 @@ _BLOCKED_IMPORT = textwrap.dedent(
     q = np.arange(12, dtype=np.uint32).reshape(4, 3)
     total = secagg_sim.masked_sum(prng.PRNGKey(0, device="cpu"), q, device="cpu")
     assert (total.numpy() == q.sum(0)).all()
+    # the multi-device plane on a world of one gloo rank
+    import tempfile
+    import torch.distributed as dist
+    from pygrid_tpu_torch.models import moe
+    from pygrid_tpu_torch.parallel import (initialize_distributed, make_mesh, pipeline_apply,
+                                           ring_attention, sequential_apply)
+    from pygrid_tpu_torch.smpc import ring as R
+    from pygrid_tpu_torch.smpc.sharded import make_sharded_open
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed(init_method="file://" + tmp + "/rendezvous", world_size=1, rank=0,
+                               device="cpu")
+        try:
+            mesh = make_mesh(device="cpu")
+            assert (secagg_sim.make_sharded_masked_sum(mesh)(prng.PRNGKey(0, device="cpu"),
+                                                            q).numpy() == q.sum(0)).all()
+            shares = R.to_ring(np.full((3, 2), 2**63, np.uint64), device="cpu")
+            assert R.from_ring(make_sharded_open(mesh, "clients")(shares)).tolist() == [2**63] * 2
+            x = torch.randn(2, 8, 2, 4)
+            seq = make_mesh(axes=("seq",), device="cpu")
+            assert torch.allclose(ring_attention(x, x, x, seq, causal=True),
+                                  parallel.attention(x, x, x, causal=True), atol=1e-6)
+            stage = make_mesh(axes=("stage",), device="cpu")
+            fn = lambda p, h: torch.tanh(h @ p[0])
+            w = (torch.randn(1, 4, 4),)
+            assert torch.allclose(pipeline_apply(fn, w, x[0, 0], stage),
+                                  sequential_apply(fn, w, x[0, 0]))
+            params = moe.init(4, 8, 2, device="cpu")
+            assert moe.apply_expert_parallel(params, x[0, :, 0], make_mesh(axes=("expert",),
+                                             device="cpu")).shape == (8, 4)
+        finally:
+            dist.destroy_process_group()
     leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
     assert not leaked, leaked
     print("ok", len({_modules()!r}))
@@ -308,6 +340,14 @@ def test_entry_points_without_device_cpu_raise_on_a_gpu_less_host(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA GPU"):
         secagg_sim.simulate_secagg_round(key, np.zeros((2, 3), np.float32), 0.1)
     assert (secagg_sim.masked_sum(key, q, device="cpu").numpy() == q.sum(0)).all()
+    # the multi-device plane: each raises before it touches torch.distributed
+    from pygrid_tpu_torch.models import moe
+    from pygrid_tpu_torch.parallel import hybrid_mesh, initialize_distributed, make_mesh
+
+    for entry in (make_mesh, hybrid_mesh, initialize_distributed, lambda: moe.init(4, 8, 2)):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            entry()
+    assert moe.init(4, 8, 2, device="cpu")[1].shape == (2, 4, 8)
 
 
 def test_plan_and_oplist_with_device_cuda_raise_on_a_gpu_less_host():
@@ -370,3 +410,33 @@ def test_node_apps_and_clients_never_import_requests(path):
     level or inside a function."""
     bad = [(line, n) for line, n in _imported_names(path) if n.split(".")[0] == "requests"]
     assert not bad, f"{path.name} imports requests at {bad}"
+
+
+def _raised_messages(tree: ast.Module) -> list[tuple[int, str]]:
+    """(line, text) of every ``raise NotImplementedError(...)``: its string
+    arguments, a module-level string constant it names included."""
+    consts = {t.id: n.value.value for n in tree.body if isinstance(n, ast.Assign)
+              for t in n.targets if isinstance(t, ast.Name)
+              and isinstance(n.value, ast.Constant) and isinstance(n.value.value, str)}
+    found = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Raise) or node.exc is None:
+            continue
+        exc = node.exc.func if isinstance(node.exc, ast.Call) else node.exc
+        if not (isinstance(exc, ast.Name) and exc.id == "NotImplementedError"):
+            continue
+        texts = [consts.get(n.id, "") if isinstance(n, ast.Name) else n.value
+                 for n in ast.walk(node.exc) if isinstance(n, ast.Name)
+                 or (isinstance(n, ast.Constant) and isinstance(n.value, str))]
+        found.append((node.lineno, " ".join(texts)))
+    return found
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_not_implemented_error_names_multi_device(path):
+    """The multi-device plane is ported: no ``NotImplementedError`` of the
+    port says it waits for it."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [(line, text) for line, text in _raised_messages(tree)
+           if "multi-device" in text or "parallel/mesh.py" in text]
+    assert not bad, f"{path.name} still raises {bad}"

@@ -3,8 +3,8 @@ against the JAX package's, on the CPU: the same keys give the same pairwise
 masks bit for bit (the port's threefry against ``jax.random.bits``), so the
 masked batch, its sum mod 2^32 and a whole simulated round are identical,
 and the sum is the plain quantised sum (as ``tests/unit/test_secagg.py``
-checks for the JAX package). The mesh path waits for multi-device and says
-so."""
+checks for the JAX package). The mesh path runs here on a world of one
+rank."""
 
 import jax
 import jax.numpy as jnp
@@ -57,9 +57,25 @@ def test_simulated_round_is_bit_identical_to_the_jax_package():
     np.testing.assert_array_equal(from_tensor, want)
 
 
-def test_the_mesh_path_waits_for_multi_device():
-    diffs = np.zeros((2, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        secagg_sim.simulate_secagg_round(_key(0), diffs, 0.1, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py"):
-        secagg_sim.make_sharded_masked_sum(object())
+def test_the_mesh_path_waits_for_multi_device(tmp_path):
+    """The mesh path no longer waits for multi-device: on a world of one
+    gloo rank, ``make_sharded_masked_sum`` and ``simulate_secagg_round(mesh=)``
+    are bit-identical to the single-device path and the JAX package's
+    (``tests/test_torch_sharded_rounds.py`` runs them on a world of 4)."""
+    import torch.distributed as dist
+
+    from pygrid_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    diffs = np.random.default_rng(6).normal(0, 0.01, (8, 5, 3)).astype(np.float32)
+    q = np.random.default_rng(5).integers(0, 1 << 32, (4, 17), dtype=np.uint32)
+    initialize_distributed(init_method=f"file://{tmp_path / 'rendezvous'}", world_size=1, rank=0,
+                           device="cpu")
+    try:
+        mesh = make_mesh(device="cpu")
+        total = secagg_sim.make_sharded_masked_sum(mesh)(_key(9), q)
+        np.testing.assert_array_equal(total.numpy().astype(np.uint32), _plain_sum(q))
+        got = secagg_sim.simulate_secagg_round(_key(1), diffs, 0.1, mesh=mesh, device="cpu")
+    finally:
+        dist.destroy_process_group()
+    want = jsim.simulate_secagg_round(jax.random.PRNGKey(1), diffs, clip_range=0.1)
+    np.testing.assert_array_equal(got, want)
