@@ -160,6 +160,29 @@ the script exits non-zero:
               16,384 tokens, capacity factor 2.0, f32, against apply_dense.
               Every kernel must launch on the mesh path; its launches join
               the kernels line.
+18. storm   — the storm harness (pygrid_tpu_torch.storm) with its nodes on
+              the card: the smoke scenario (one node, one sub-aggregator,
+              FL, generation and data-centric traffic, a sub-aggregator
+              killed mid-cycle, the KV pool exhausted, the admission queue
+              saturated), its flight dump replayed with no verdict
+              mismatch, then the full scenario (64 workers, two nodes, two
+              sub-aggregators, all four legs, five fault kinds, seven
+              checks); every verdict must pass, and node 0's KV pool and a
+              tensor it holds must be on the card. Prints each scenario's
+              wall, each leg's ops by outcome, each verdict's measured
+              reaction, the SLO transitions and the TTFT p50/p99 (bucket
+              bounds of the SLO engine's histogram), and each kernel's
+              launches during the storms (expected 0), which join the
+              kernels line;
+19. deploy  — the deploy plane (pygrid_tpu_torch.infra): every provider,
+              deployment type and app rendered as a dry run, then
+              LocalProvider.deploy(apply=True) spawning a port node on the
+              card on a free port: /healthz 200 within 60 s (the seconds
+              printed), a tensor through DataCentricFLClient and back on
+              the card, the child among nvidia-smi's compute processes
+              (its pid, or the count up by one where nvidia-smi reports
+              another pid namespace), and after destroy() the child gone
+              and the count back.
 
 ``python3 chip_smoke.py --mesh-world N`` builds the kernels and runs only
 phase mesh, on N GPUs of one machine (one spawned process each, NCCL across
@@ -3441,6 +3464,268 @@ def mesh_world(world: int, device="cuda", timeout=300) -> None:
     print(f"[mesh] world of {world}: every rank passed")
 
 
+# --------------------------------------------------------------------------
+# phase 18: storm
+# --------------------------------------------------------------------------
+
+STORM_SCENARIOS = ("smoke", "full")
+
+
+def _ttft_buckets() -> list:
+    """Cumulative (le, count) buckets of ``serving_ttft_seconds`` summed over
+    every label set of this process's telemetry bus — the histogram the
+    nodes' SLO engines read their TTFT objective from."""
+    from pygrid_tpu_torch import telemetry
+
+    total: dict = {}
+    for (name, _), snap in telemetry.histograms().items():
+        if name == "serving_ttft_seconds":
+            for le, n in snap["buckets"]:
+                total[le] = total.get(le, 0) + n
+    return sorted(total.items())
+
+
+def _quantile_bound(before: list, after: list, q: float):
+    """The upper bound of the bucket that holds quantile ``q`` of the
+    observations made between two ``_ttft_buckets`` readings."""
+    prev = dict(before)
+    diff = [(le, n - prev.get(le, 0)) for le, n in after]
+    count = diff[-1][1] if diff else 0
+    if not count:
+        return None, 0
+    return next(le for le, n in diff if n >= q * count), count
+
+
+def _storm_probe(topology, device) -> None:
+    """Before the storm's topology stops: node 0's paged KV pool and a
+    tensor the node holds (sent through a port client) are on ``device``."""
+    import numpy as np
+
+    from pygrid_tpu_torch.client import DataCentricFLClient
+    from pygrid_tpu_torch.storm.loadgen import GEN_MODEL_ID
+
+    ctx = topology.node_ctx(0)
+    engine = ctx.serving.engines()[GEN_MODEL_ID]
+    check(engine._k.device.type == torch.device(device).type,
+          f"storm: the KV pool is on {engine._k.device}, not {device}")
+    client = DataCentricFLClient(topology.nodes[0].url, device=device)
+    try:
+        client.send(np.arange(4, dtype=np.float32), tags=("#storm-device",))
+        held = [o.value for store in ctx.all_stores() for o in store.search(["#storm-device"])]
+    finally:
+        client.close()
+    check(len(held) == 1 and isinstance(held[0], torch.Tensor)
+          and held[0].device.type == torch.device(device).type,
+          f"storm: the node holds {[getattr(v, 'device', type(v)) for v in held]}, not {device}")
+    print(f"[storm] node 0's KV pool {tuple(engine._k.shape)} {engine._k.dtype} on "
+          f"{engine._k.device}; a tensor it holds on {held[0].device}")
+
+
+def _storm_lines(name, report, secs, ttft) -> None:
+    v = {x.name: x for x in report.verdicts}
+    print(f"[storm] {name}: {secs:.1f} s wall (build, {report.scenario['duration_s']} s of "
+          f"traffic, {report.scenario['settle_s']} s settle, checks)")
+    for leg, counts in sorted(report.metrics["ops"].items()):
+        print(f"[storm] {name} traffic {leg}: "
+              + ", ".join(f"{k}={n}" for k, n in sorted(counts.items())))
+    for x in report.verdicts:
+        measured = {k: m for k, m in x.measured.items() if k not in ("ledgers", "ops")}
+        print(f"[storm] {name} verdict {x.name}: {'PASS' if x.ok else 'FAIL'} {measured}"
+              + (f" ({x.detail})" if x.detail else ""))
+    trans = [t for t in report.metrics["transitions"] if t["from"] is not None]
+    held = []
+    for i, t in enumerate(trans):
+        if t["to"] == "breach":
+            out = next((u for u in trans[i + 1:] if u["name"] == t["name"]
+                        and u["from"] == "breach"), None)
+            held.append(f"{t['name']} {out['ts'] - t['ts']:.3f} s" if out else
+                        f"{t['name']} not left")
+    print(f"[storm] {name} SLO transitions on node 0: "
+          f"{[(t['name'], t['from'], t['to']) for t in trans]}; breach to recovery: {held}")
+    if "degraded_routing" in v and v["degraded_routing"].ok:
+        print(f"[storm] {name} slow node flipped to degraded "
+              f"{v['degraded_routing'].measured['react_s']} s after slow_node was applied, "
+              "and every node was back online before the run ended")
+    p50, n = ttft[0]
+    p99, _ = ttft[1]
+    print(f"[storm] {name} TTFT over {n} generations (serving_ttft_seconds, the SLO engine's "
+          f"histogram): p50 <= {p50} s, p99 <= {p99} s (bucket bounds)")
+
+
+def phase_storm(device="cuda") -> dict:
+    """The storm harness on the card: ``StormHarness(get_scenario(name),
+    device=device)`` for smoke, then full; every verdict must pass, the
+    smoke dump replays with no mismatch, node 0's KV pool and a tensor it
+    holds are on ``device``. Returns each kernel's launches during the
+    storms (expected 0: decode runs eagerly, the SMPC leg only adds
+    shares)."""
+    import os
+    import shutil
+    import tempfile
+
+    from pygrid_tpu_torch.storm import loadgen
+    from pygrid_tpu_torch.storm.replay import replay
+    from pygrid_tpu_torch.storm.scenarios import get_scenario
+
+    flight = tempfile.mkdtemp(prefix="chip_smoke_flight_")
+    saved = {k: os.environ.get(k) for k in ("PYGRID_FLIGHT_DIR", "PYGRID_FLIGHT_MIN_INTERVAL_S")}
+    os.environ.update(PYGRID_FLIGHT_DIR=flight, PYGRID_FLIGHT_MIN_INTERVAL_S="0")
+
+    class ProbedTopology(loadgen.StormTopology):
+        def close(self):
+            try:
+                _storm_probe(self, device)
+            finally:
+                super().close()
+
+    counters = _counters()
+    for c in counters.values():
+        c.reset_launch_counts()
+    plain = loadgen.StormTopology
+    loadgen.StormTopology = ProbedTopology
+    print(f"[storm] {card_line()}; nodes on {device}, network and sub-aggregators on the host")
+    try:
+        for name in STORM_SCENARIOS:
+            before = _ttft_buckets()
+            t0 = time.perf_counter()
+            report = loadgen.StormHarness(get_scenario(name), device=device).run()
+            secs = time.perf_counter() - t0
+            after = _ttft_buckets()
+            _storm_lines(name, report, secs, (_quantile_bound(before, after, 0.5),
+                                              _quantile_bound(before, after, 0.99)))
+            failed = [(x.name, x.detail) for x in report.verdicts if not x.ok]
+            check(report.ok and not failed, f"storm {name}: verdicts failed: {failed}")
+            if name == "smoke":
+                t0 = time.perf_counter()
+                replayed, mismatches = replay(report.dump_path, device=device)
+                check(not mismatches and replayed.ok,
+                      f"storm: the smoke dump's replay differs: {mismatches}; replayed "
+                      f"{[(x.name, x.detail, x.measured) for x in replayed.verdicts if not x.ok]}")
+                print(f"[storm] smoke dump replayed in {time.perf_counter() - t0:.1f} s: "
+                      f"{len(replayed.verdicts)} verdicts, no mismatch")
+    finally:
+        loadgen.StormTopology = plain
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(flight, ignore_errors=True)
+    launches = {k: n for c in counters.values() for k, n in c.launch_counts().items()}
+    print(f"[storm] hand-written kernel launches during the storms: {launches}")
+    return launches
+
+
+# --------------------------------------------------------------------------
+# phase 19: deploy
+# --------------------------------------------------------------------------
+
+
+def _gpu_pids() -> list:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return [int(x) for x in out.stdout.split() if x.strip().isdigit()]
+
+
+def _wait_gpu_pids(done, device, timeout=10.0) -> list:
+    """Poll nvidia-smi's compute processes until ``done(pids)`` or the
+    timeout; the last reading (no reading off the card)."""
+    if device != "cuda":
+        return []
+    deadline = time.perf_counter() + timeout
+    while True:
+        pids = _gpu_pids()
+        if done(pids) or time.perf_counter() > deadline:
+            return pids
+        time.sleep(0.2)
+
+
+def phase_deploy(device="cuda") -> None:
+    """The deploy plane: every provider, deployment type and app rendered
+    as a dry run; then ``LocalProvider.deploy(apply=True)`` spawns a port
+    node on ``device`` on a free port: ``/healthz`` 200 within 60 s, a
+    tensor through ``DataCentricFLClient`` and back, the child among the
+    card's compute processes (by its pid, or, where nvidia-smi reports pids
+    of another namespace, by their count growing by one), and after
+    ``destroy()`` the child gone and the count back."""
+    import json as _json
+    import socket
+    import tempfile
+
+    import numpy as np
+
+    from pygrid_tpu_torch.client import DataCentricFLClient
+    from pygrid_tpu_torch.infra.config import (APPS, DEPLOYMENT_TYPES, PROVIDERS, AppConfig,
+                                               DeployConfig, GpuConfig)
+    from pygrid_tpu_torch.infra.providers import build_provider
+    from pygrid_tpu_torch.web import client as http
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_deploy_") as tmp:
+        rendered = 0
+        for provider in PROVIDERS:
+            for kind in DEPLOYMENT_TYPES:
+                for app in APPS:
+                    cfg = DeployConfig(provider=provider, deployment_type=kind,
+                                       app=AppConfig(name=app), root_dir=tmp)
+                    out = build_provider(cfg).deploy(apply=False)
+                    check(out["applied"] is False and out["files"],
+                          f"deploy: {provider}/{kind}/{app} rendered nothing")
+                    if "main.tf.json" in out["files"]:
+                        with open(f"{out['root_dir']}/main.tf.json") as fh:
+                            _json.load(fh)
+                    rendered += 1
+        print(f"[deploy] {rendered} (provider, deployment type, app) stacks rendered as dry runs "
+              f"(terraform {'present' if build_provider(cfg).tf.available() else 'absent'})")
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        cfg = DeployConfig(provider="local", app=AppConfig(name="node", id="deployed",
+                                                           host="127.0.0.1", port=port),
+                           gpu=GpuConfig(device=device), root_dir=tmp)
+        provider = build_provider(cfg)
+        pids_before = _gpu_pids() if device == "cuda" else []
+        t0 = time.perf_counter()
+        result = provider.deploy(apply=True)
+        proc = provider.processes[0]
+        try:
+            url = f"http://127.0.0.1:{port}"
+            healthy = None
+            while healthy is None and time.perf_counter() - t0 < 60:
+                check(proc.poll() is None, f"deploy: the node exited with {proc.returncode}")
+                try:
+                    if http.get(url + "/healthz", timeout=2).status_code == 200:
+                        healthy = time.perf_counter() - t0
+                except OSError:
+                    time.sleep(0.1)
+            check(healthy is not None, "deploy: the spawned node was not healthy within 60 s")
+            client = DataCentricFLClient(url, device=device)
+            try:
+                sent = np.arange(6, dtype=np.float32) * 1.5
+                back = client.send(sent, tags=("#deployed",)).get()
+            finally:
+                client.close()
+            back = back.cpu().numpy() if isinstance(back, torch.Tensor) else np.asarray(back)
+            check(np.array_equal(back, sent), f"deploy: the tensor came back as {back!r}")
+            pids = _wait_gpu_pids(lambda p: result["pid"] in p or len(p) > len(pids_before),
+                                  device)
+            check(device != "cuda" or result["pid"] in pids or len(pids) == len(pids_before) + 1,
+                  f"deploy: the node (pid {result['pid']}) holds no CUDA context: the card's "
+                  f"compute processes {pids_before} before it, {pids} with it")
+            print(f"[deploy] {provider.command()[1:3]} spawned (pid {result['pid']}) healthy in "
+                  f"{healthy:.2f} s; a tensor sent through DataCentricFLClient came back equal; "
+                  f"nvidia-smi's compute processes {pids_before} before the node, {pids} with "
+                  "it (a pid namespace apart from ours when the pid is not among them: the "
+                  "count says the node holds a context)")
+        finally:
+            provider.destroy()
+        after = _wait_gpu_pids(lambda p: len(p) <= len(pids_before), device)
+        check(device != "cuda" or len(after) == len(pids_before),
+              f"deploy: the card's compute processes {after} after destroy(), {pids_before} "
+              "before the node")
+        check(proc.poll() is not None, "deploy: the node still runs after destroy()")
+        print(f"[deploy] destroy(): the node exited with {proc.returncode}")
+
+
 def main() -> int:
     check(torch.cuda.is_available(), "no CUDA GPU: chip_smoke.py runs on the card only")
     import pygrid_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
@@ -3478,6 +3763,9 @@ def main() -> int:
                                + secagg_launches)
     for name, n in phase_mesh().items():
         launches[name] += n
+    for name, n in phase_storm().items():
+        launches[name] += n
+    phase_deploy()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -363,6 +363,9 @@ class GenerationEngine:
         #: (chaos_hold_blocks) — never visible to admission, always
         #: accounted for by ledger() so a forgotten hold reads as a leak
         self._chaos_blocks: list[int] = []
+        #: a standing hold of EVERY block (chaos_hold_blocks(None)): it
+        #: also claims the blocks that free while it stands
+        self._chaos_hold_all = False
 
     # ── client surface (any thread) ─────────────────────────────────────
 
@@ -640,9 +643,21 @@ class GenerationEngine:
         them when None) from the pool, starving admission the way a
         burst of long-context requests would. Returns how many are now
         held. Release with :meth:`chaos_release_blocks`; ledger() counts
-        the holds so they can never masquerade as a clean drain."""
+        the holds so they can never masquerade as a clean drain.
+
+        With ``n=None`` the hold stands until the release: admission
+        parks for its whole extent, and the blocks that live requests
+        or prefix evictions free meanwhile join the hold. (Withdrawing
+        only the blocks free at the instant of the call — the JAX
+        package's behaviour — lets admission resume on the first
+        completion whenever a request is live at that instant, so the
+        fault's starvation, and a storm's breach verdict, depended on
+        timing.)"""
         if not self._paged:
             return 0
+        if n is None:
+            with self._lock:
+                self._chaos_hold_all = True
         grabbed: list[int] = []
         while n is None or len(grabbed) < n:
             got = self._pool.alloc(1)
@@ -658,6 +673,7 @@ class GenerationEngine:
         back to the pool."""
         with self._lock:
             held, self._chaos_blocks = self._chaos_blocks, []
+            self._chaos_hold_all = False
         if held:
             self._pool.release(held)
             with self._work:
@@ -944,6 +960,19 @@ class GenerationEngine:
         private pages for the rest of prompt + n_new, evicting LRU
         prefix entries under pressure. False = pool exhausted, caller
         parks the row. Engine thread only."""
+        if self._chaos_hold_all:
+            # a standing hold takes what completions have freed since,
+            # and nothing is evicted for admission while it stands
+            grabbed: list[int] = []
+            while (got := self._pool.alloc(1)) is not None:
+                grabbed.extend(got)
+            with self._lock:
+                if self._chaos_hold_all:
+                    self._chaos_blocks.extend(grabbed)
+                    return False
+            # released meanwhile: hand the sweep back and admit
+            if grabbed:
+                self._pool.release(grabbed)
         total_pages = -(-(len(row.prompt) + row.n_new) // self._block)
         shared = self._prefix.match(row.prompt)
         need = total_pages - len(shared)
@@ -1288,6 +1317,7 @@ class GenerationEngine:
                 # chaos holds named the OLD pool; releasing those ids
                 # against the fresh allocator would be a refcount bug
                 self._chaos_blocks = []
+                self._chaos_hold_all = False
             else:
                 # clean close: refcounts must balance exactly (the
                 # leak test rides on this) — release each admitted

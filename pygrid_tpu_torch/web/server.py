@@ -716,6 +716,10 @@ class BackgroundServer:
     def url(self) -> str:
         return f"http://{self.host}:{self.port}"
 
+    def alive(self) -> bool:
+        """Whether the loop thread still runs: started and not stopped."""
+        return self._thread.is_alive()
+
     def _run(self) -> None:
         asyncio.set_event_loop(self.loop)
 

@@ -42,7 +42,8 @@ LAZY = ("websockets", "requests")
 #: the node's and the network's apps, the workers, the clients and the web
 #: layer speak HTTP through the port's own ``web`` package: they never
 #: import ``requests``, not even in a function
-NO_REQUESTS = [PKG / d for d in ("web", "users", "client", "node", "network", "worker")] + [
+NO_REQUESTS = [PKG / d for d in ("web", "users", "client", "node", "network", "worker", "storm",
+                                  "infra")] + [
     PKG / "telemetry" / f for f in ("__init__.py", "promtext.py", "slo.py")]
 
 
@@ -406,8 +407,8 @@ def _imported_names(path: Path) -> list[tuple[int, str]]:
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_node_apps_and_clients_never_import_requests(path):
     """``requests`` appears in no import of the web layer, users/, client/,
-    node/, network/, worker/ or the node's telemetry modules — at module
-    level or inside a function."""
+    node/, network/, worker/, storm/, infra/ or the node's telemetry
+    modules — at module level or inside a function."""
     bad = [(line, n) for line, n in _imported_names(path) if n.split(".")[0] == "requests"]
     assert not bad, f"{path.name} imports requests at {bad}"
 

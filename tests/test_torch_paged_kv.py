@@ -7,12 +7,14 @@ packages' ``BlockPool`` and ``PrefixCache`` and compares every result and
 ``ledger()``. Engine cases: greedy output bit-identical to the port's
 ``generate`` (f32 and a bf16 cache), prefix sharing copy-on-write, busy
 on block exhaustion, an impossible request as a typed defect, exact
-refcounts after mixed outcomes, no program built under prefix variety, and
-live re-partitioning of one device budget.
+refcounts after mixed outcomes, no program built under prefix variety, a
+standing chaos hold that parks admission until its release, and live
+re-partitioning of one device budget.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import threading
 import time
 
@@ -423,6 +425,30 @@ def test_chaos_holds_are_counted_by_the_ledger(params):
         assert led["chaos_held"] == 2 and not led["drained"]
         assert eng.chaos_release_blocks() == 2
         assert eng.ledger()["drained"]
+    finally:
+        eng.close()
+
+
+def test_standing_chaos_hold_parks_admission_until_release(params):
+    """``chaos_hold_blocks(None)`` stands until the release: blocks that
+    free while it stands (here the prefix cache's, which admission would
+    otherwise evict) join the hold, so a request parks for the hold's whole
+    extent and then runs, and every block is accounted for."""
+    eng = _paged_engine(params, num_blocks=6)
+    try:
+        eng.submit(np.arange(1, 18, dtype=np.int32)[None, :], 2)
+        assert eng.ledger()["cached"] == 2
+        held = eng.chaos_hold_blocks(None)
+        assert held == eng.ledger()["usable"] - 2  # the free ones; two are cached
+        future = eng.enqueue(np.array([[7, 3, 9]], np.int32), 4)
+        with pytest.raises(concurrent.futures.TimeoutError):
+            future.result(timeout=0.5)
+        led = eng.ledger()
+        assert led["queue_depth"] == 1 and led["live_slots"] == 0
+        assert led["chaos_held"] == held  # nothing freed yet: the cache was not evicted
+        assert eng.chaos_release_blocks() == held
+        np.testing.assert_array_equal(future.result(timeout=30), _ref(params, [[7, 3, 9]], 4))
+        assert eng.ledger()["drained"] and eng.ledger()["balanced"]
     finally:
         eng.close()
 

@@ -70,6 +70,9 @@ async def _multipart(request):
                               "name": fields["name"]})
 
 
+#: (the connection's ``tag`` query parameter, its close code) per finished
+#: handler — a test reads only its own connections' codes, since another
+#: test's connection on the module's server may finish later
 CLOSED = []
 
 
@@ -84,7 +87,7 @@ async def _ws(request):
             await ws.send_str(msg.data)
         elif msg.type == web.WSMsgType.BINARY:
             await ws.send_bytes(msg.data)
-    CLOSED.append(ws.close_code)
+    CLOSED.append((request.query.get("tag"), ws.close_code))
     return ws
 
 
@@ -354,9 +357,11 @@ def test_payload_lengths_and_fragmentation_roundtrip(server, sizes, binary, ping
 
 
 def test_ping_pong_and_close_handshake(server):
+    url = _ws_url(server) + "?tag=ping-pong"
+
     async def aio():
         async with aiohttp.ClientSession() as s:
-            w = await s.ws_connect(_ws_url(server), autoping=False)
+            w = await s.ws_connect(url, autoping=False)
             await w.ping(b"abc")
             pong = await w.receive()
             await w.send_bytes(b"z" * 70000)
@@ -370,17 +375,17 @@ def test_ping_pong_and_close_handshake(server):
     assert echo.data == b"z" * 70000
     assert ok and code == 1000
     # a server-initiated close carries its code to the client
-    c = RawWSClient(_ws_url(server))
+    c = RawWSClient(url)
     c.send("close-me")
     with pytest.raises(ConnectionError, match="close"):
         c.recv(timeout=5)
     c.close()
     deadline = threading.Event()
     for _ in range(50):
-        if len(CLOSED) >= 2:
+        if len([t for t, _ in CLOSED if t == "ping-pong"]) >= 2:
             break
         deadline.wait(0.05)
-    assert CLOSED == [1000, 4000]
+    assert [code for t, code in CLOSED if t == "ping-pong"] == [1000, 4000]
 
 
 @pytest.mark.parametrize("bad, code", [
