@@ -183,6 +183,26 @@ the script exits non-zero:
               (its pid, or the count up by one where nvidia-smi reports
               another pid namespace), and after destroy() the child gone
               and the count back.
+20. lint    — the port's gridlint on the card's machine: (a) ``python -m
+              pygrid_tpu_torch.analysis pygrid_tpu_torch/ --strict-baseline``
+              in a subprocess must exit 0 (files, findings by family,
+              suppressions and seconds printed); (b) GL1's twin: one fused
+              FedAvg round (phase rounds' config, the flash kernels
+              launching; its backward on the calling thread) and one serving
+              request over 3 fused quanta (phase serving's engine) under
+              torch.cuda.set_sync_debug_mode("warn"): every sync must have a
+              pygrid_tpu_torch frame, and one whose stack holds a program
+              body must sit in a body GL1 reaches, on a line GL102
+              reported; the syncs outside programs are printed, per quantum
+              for the engine; (c) GL5's
+              twin: each kernel instantiation GL5 resolves from csrc/ must be
+              an entry function of ptxas' report and vice versa, and, for
+              each launched under torch.profiler (bf16 D 40/64/128/256, f32
+              D 64/256, the ring matmul), GL5's threads equal the block the
+              card ran, GL5's dynamic shared memory plus ptxas' static bytes
+              the profiler's, and ptxas' registers the profiler's (in a fresh
+              interpreter: after the other phases the profiler returns
+              launch records of only some kernels).
 
 ``python3 chip_smoke.py --mesh-world N`` builds the kernels and runs only
 phase mesh, on N GPUs of one machine (one spawned process each, NCCL across
@@ -197,6 +217,7 @@ or of pygrid_tpu, and exits non-zero without a GPU.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -3725,6 +3746,342 @@ def phase_deploy(device="cuda") -> None:
         check(proc.poll() is not None, "deploy: the node still runs after destroy()")
         print(f"[deploy] destroy(): the node exited with {proc.returncode}")
 
+# --------------------------------------------------------------------------
+# phase 20: lint — gridlint on the card's machine, and its two twins
+# --------------------------------------------------------------------------
+
+
+def _lint_run() -> None:
+    """(a) ``python -m pygrid_tpu_torch.analysis pygrid_tpu_torch/`` in a
+    subprocess, strict against the committed baseline: it must exit 0."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pygrid_tpu_torch.analysis", "pygrid_tpu_torch/",
+         "--strict-baseline", "--format", "json"],
+        cwd=root, capture_output=True, text=True, timeout=600,
+    )
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"lint: exit {proc.returncode}:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    report = json.loads(proc.stdout)
+    families = {}
+    for f in report["baselined"]:
+        families[f["code"][:3]] = families.get(f["code"][:3], 0) + 1
+    print(f"[lint] python -m pygrid_tpu_torch.analysis pygrid_tpu_torch/ --strict-baseline: exit 0, "
+          f"{report['files_checked']} files, {len(report['failures'])} findings, "
+          f"{len(report['baselined'])} baselined by family {dict(sorted(families.items()))}, "
+          f"{len(report['suppressed'])} suppressed, {len(report['stale_baseline'])} stale; "
+          f"{report['elapsed_s']} s in the linter, {secs:.2f} s with the interpreter's start")
+
+
+def _sync_stacks(fn):
+    """Run ``fn`` under ``torch.cuda.set_sync_debug_mode("warn")``; returns
+    (its result, one list of ``(repo path, line, function)`` frames inside
+    pygrid_tpu_torch, innermost last, per sync warning), from whichever
+    thread the sync ran on."""
+    import threading
+    import traceback
+    import warnings
+
+    root = os.path.dirname(os.path.abspath(__file__)) + os.sep
+    pkg = os.path.join(root, "pygrid_tpu_torch") + os.sep
+    stacks, lock = [], threading.Lock()
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        # torch's text for a sync; its one-time "prototype feature" notice
+        # at set_sync_debug_mode is no sync
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        frames = [(f.filename[len(root):], f.lineno, f.name) for f in stack
+                  if f.filename.startswith(pkg)]
+        if not frames:  # say where it came from instead
+            print(f"[lint] a sync with no pygrid_tpu_torch frame on thread "
+                  f"{threading.current_thread().name}: {str(message)[:120]!r} at "
+                  + " <- ".join(f"{os.path.basename(f.filename)}:{f.lineno}:{f.name}"
+                                for f in reversed(stack[-6:])))
+        with lock:
+            stacks.append(frames)
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return out, stacks
+
+
+def _classify_syncs(tag, stacks, gl1, gl102) -> dict:
+    """Hold each observed sync against GL1: a sync with a program body on
+    its stack must sit in a body GL1 reaches, on a line GL102 reported.
+    Returns the syncs outside programs by (site, function)."""
+    def inside(spans, path, line):
+        return any(a <= line <= b for a, b, _ in spans.get(path, ()))
+
+    in_programs, outside = {}, {}
+    for frames in stacks:
+        check(frames, f"lint {tag}: a sync with no pygrid_tpu_torch frame cannot be held "
+                      "against GL1 (its origin is printed above)")
+        path, line, _ = frames[-1]
+        if any(inside(gl1.roots, p, n) for p, n, _ in frames):
+            check(inside(gl1.closure, path, line),
+                  f"lint {tag}: a sync at {path}:{line} inside a program, in a body GL1 does "
+                  "not reach")
+            check(any(a <= line <= b for a, b in gl102.get(path, ())),
+                  f"lint {tag}: a sync at {path}:{line} inside a program, on a line GL102 "
+                  "reported clean")
+            in_programs[f"{path}:{line}"] = in_programs.get(f"{path}:{line}", 0) + 1
+        else:
+            site = (f"{path}:{line}", frames[-1][2])
+            outside[site] = outside.get(site, 0) + 1
+    print(f"[lint] {tag}: {len(stacks)} syncs; in programs, each on a GL102 line "
+          f"(baselined): {in_programs or 'none'}; outside programs: "
+          f"{ {site: n for (site, _), n in outside.items()} or 'none'}")
+    return outside
+
+
+def _lint_syncs() -> None:
+    """(b) The GL1 twin: one fused FedAvg round and one serving request
+    (phase rounds' and phase serving's configurations, full width) under
+    the sync debug mode; every sync is mapped to its innermost
+    pygrid_tpu_torch frame and held against GL1's reach and GL102's
+    findings."""
+    from functools import partial
+
+    from pygrid_tpu_torch.analysis import run_checks
+    from pygrid_tpu_torch.analysis.checkers import TraceSafetyChecker
+    from pygrid_tpu_torch.models import transformer
+    from pygrid_tpu_torch.parallel import flash_attention as fa
+    from pygrid_tpu_torch.parallel import make_fused_rounds
+    from pygrid_tpu_torch.serving import EngineConfig, GenerationEngine
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    gl1 = TraceSafetyChecker()
+    t0 = time.perf_counter()
+    res = run_checks([os.path.join(root, "pygrid_tpu_torch")], checkers=[gl1], root=root)
+    gl102 = {}
+    for f in res.failures + res.baselined + res.suppressed:
+        if f.code == "GL102":
+            gl102.setdefault(f.path, []).append((f.line, f.end_line or f.line))
+    n_roots = sum(len(v) for v in gl1.roots.values())
+    n_bodies = sum(len(v) for v in gl1.closure.values())
+    print(f"[lint] GL1 in {time.perf_counter() - t0:.2f} s: {n_roots} program bodies reaching "
+          f"{n_bodies} function bodies in {len(gl1.closure)} files; "
+          f"{sum(len(v) for v in gl102.values())} GL102 lines")
+
+    cfg, K, B = full_config(), 8, 4
+    params, X, y = transformer_setup(cfg, K, B, "cuda")
+    loss_fn = partial(transformer.loss_and_acc, cfg=cfg, attn_fn=fa.flash_attention,
+                      compute_dtype="bfloat16", ce_grad_dtype="bfloat16")
+    one_round = make_fused_rounds(loss_fn, n_rounds=1)
+    one_round(params, X, y, 0.1)
+    fa.reset_launch_counts()
+    # the backward on the calling thread: a sync inside it then carries the
+    # Python stack of the program that ran it
+    torch.autograd.set_multithreading_enabled(False)
+    try:
+        (_, losses, _), stacks = _sync_stacks(lambda: one_round(params, X, y, 0.1))
+    finally:
+        torch.autograd.set_multithreading_enabled(True)
+    counts = fa.launch_counts()
+    check(all(n == cfg.n_layers for n in counts.values()),
+          f"lint fused round: the flash kernels launched {counts}, expected {cfg.n_layers} each")
+    check(_finite(losses), "lint fused round: non-finite loss")
+    outside = _classify_syncs(f"one fused FedAvg round (K={K}, B={B}, flash launches {counts})",
+                              stacks, gl1, gl102)
+
+    engine = GenerationEngine(cfg, params, EngineConfig(max_slots=8, cache_dtype=torch.float32),
+                              model_id="lint", device="cuda")
+    try:
+        rng = np.random.RandomState(7)
+        cases = _serve_cases(cfg, rng)
+        engine.warmup(prompt_lens=(max(p.shape[1] for p, _ in cases),))
+        _drive(engine, cases[:2])
+        quanta0 = engine.stats()["fused_scans"]
+        n_new = 3 * engine.config.quantum + 1  # the prefill's token, then 3 fused quanta
+        toks, stacks = _sync_stacks(lambda: engine.submit(cases[0][0], n_new, timeout=300))
+        quanta = engine.stats()["fused_scans"] - quanta0
+        check(np.asarray(toks).shape == (1, n_new), f"lint serving: tokens {np.shape(toks)}")
+        check(quanta >= 1, "lint serving: no fused quantum ran")
+    finally:
+        engine.close()
+    outside = _classify_syncs(f"one serving request (1 prefill, {quanta} fused quanta of "
+                              f"{engine.config.quantum} steps)", stacks, gl1, gl102)
+    fused = sum(n for (_, fn), n in outside.items() if fn == "_fused_scan")
+    print(f"[lint] serving: {sum(outside.values())} syncs outside programs for 1 admission and "
+          f"{quanta} fused quanta; {fused} of them in _fused_scan: {fused / quanta:.2f} a "
+          "quantum (the design: one token fetch a quantum)")
+
+
+def _demangle(name: str) -> tuple[str, tuple[int, ...]] | None:
+    """``_ZN3pgt19flash_fwd_tc_kernelILi128EE…`` -> ("flash_fwd_tc_kernel",
+    (128,)); a profiler name ``void pgt::flash_fwd_tc_kernel<128>(…)`` too."""
+    import re
+
+    m = re.match(r"_ZN3pgt(\d+)(\w+)", name)
+    if m:
+        n = int(m.group(1))
+        kernel, rest = m.group(2)[:n], m.group(2)[n:]
+        t = re.match(r"I((?:Li-?\d+E)+)E", rest)
+        return kernel, tuple(int(x) for x in re.findall(r"Li(-?\d+)E", t.group(1))) if t else ()
+    m = re.search(r"pgt::(\w+)(?:<([-\d, ]+)>)?\(", name)
+    if m:
+        return m.group(1), tuple(int(x) for x in m.group(2).split(",")) if m.group(2) else ()
+    return None
+
+
+def _ptxas_report() -> dict:
+    """(kernel, template args) -> {"registers", "static_smem"} from what
+    kernels/build.py kept of ptxas -v for each library."""
+    import re
+
+    from pygrid_tpu_torch.kernels import build
+
+    out, entry = {}, None
+    for name in build.LIBRARIES:
+        for line in build.build_log(name).splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                entry = _demangle(m.group(1))
+                out[entry] = {"registers": None, "static_smem": 0}
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry is not None:
+                out[entry]["registers"] = int(m.group(1))
+                s = re.search(r"(\d+) bytes smem", line)
+                out[entry]["static_smem"] = int(s.group(1)) if s else 0
+    return out
+
+
+def _lint_bounds() -> None:
+    """(c) The GL5 twin: GL5's static threads and shared memory of every
+    kernel instantiation against ptxas' report (kept by kernels/build.py)
+    and against the launches the card ran under torch.profiler."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from pygrid_tpu_torch.analysis.checkers.gl5_cuda import SMEM_LIMIT, launch_model
+    from pygrid_tpu_torch.parallel import flash_attention as fa
+    from pygrid_tpu_torch.smpc import ring_matmul as rm
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    gl5 = {}
+    for launch in launch_model(os.path.join(root, "pygrid_tpu_torch", "csrc"), root):
+        gl5[(launch.kernel, launch.targs)] = launch
+    ptxas = _ptxas_report()
+    check(set(gl5) == set(ptxas),
+          f"lint GL5: instantiations {sorted(set(gl5) ^ set(ptxas))} are in only one of GL5's "
+          "launch model and ptxas' entry functions")
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    runs = []  # (D used, the call)
+    for dtype, dims in ((torch.bfloat16, (40, 64, 128, 256)), (torch.float32, (64, 256))):
+        for D in dims:
+            q, k, v, do = (torch.randn(2, 130, 2, D, device="cuda", dtype=dtype, generator=g)
+                           for _ in range(4))
+            scale = D ** -0.5
+
+            def call(q=q, k=k, v=v, do=do, scale=scale):
+                out, lse = fa.flash_fwd(q, k, v, True, scale)
+                delta = fa.softmax_delta(out, do)
+                fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale)
+                fa.flash_bwd_dq(q, k, v, do, lse, delta, True, scale)
+
+            runs.append((D, call))
+    a = torch.randint(-2**62, 2**62, (3, 100, 70), device="cuda", generator=g)
+    b = torch.randint(-2**62, 2**62, (3, 70, 90), device="cuda", generator=g)
+    runs.append((None, lambda: rm.ring_matmul_kernel(a, b)))
+
+    def capture(call) -> dict:
+        """One profiler session over ``call``: each pgt kernel's first
+        launch record (block threads, shared memory, registers)."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device="cuda").add_(1)  # a kernel ahead of the ones recorded
+            call()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as fh:
+                trace = json.load(fh)
+        records = {}
+        for ev in trace.get("traceEvents", []):
+            key = _demangle(ev.get("name", "")) if ev.get("cat") == "kernel" else None
+            if key is not None:
+                names.add(ev["name"][:60])
+            if key in gl5:
+                args = ev.get("args", {})
+                block = args.get("block", [0, 0, 0])
+                records.setdefault(key, (int(block[0]) * int(block[1]) * int(block[2]),
+                                         args.get("shared memory"),
+                                         args.get("registers per thread")))
+        return records
+
+    for _, call in runs:
+        call()
+    torch.cuda.synchronize()
+    # the runs launch every instantiation between them; where the profiler
+    # dropped a launch record, every run is traced again (3 passes at most)
+    seen, passes, names = {}, 0, set()
+    while passes < 3 and set(gl5) - set(seen):
+        passes += 1
+        for D, call in runs:
+            for key, rec in capture(call).items():
+                seen.setdefault(key, (D, *rec))
+        if set(gl5) - set(seen):
+            print(f"[lint] GL5 twin: profiler pass {passes} has no launch record of "
+                  f"{sorted(set(gl5) - set(seen))}; the pgt kernel names it saw: {sorted(names)}")
+    check(not set(gl5) - set(seen),
+          f"lint GL5: no launch record of {sorted(set(gl5) - set(seen))} in {passes} profiler "
+          "passes over runs that launch them")
+    print("[lint] GL5 twin: kernel | GL5 threads / launched block | GL5 dynamic smem (at D) + "
+          "ptxas static = profiler smem | ptxas registers = profiler registers")
+    for key in sorted(gl5):
+        launch, rep = gl5[key], ptxas[key]
+        name = launch.name
+        D, block, smem, regs = seen[key]
+        want_smem = launch.smem() if launch.smem() is not None else launch.smem(D=D)
+        check(launch.threads == launch.block == block,
+              f"lint GL5 {name}: __launch_bounds__ {launch.threads}, GL5 block {launch.block}, "
+              f"the card launched {block} threads")
+        check(want_smem is not None and want_smem <= SMEM_LIMIT,
+              f"lint GL5 {name}: shared memory {want_smem} at D={D}")
+        check(smem is not None and want_smem + rep["static_smem"] == int(smem),
+              f"lint GL5 {name}: GL5 {want_smem} + ptxas static {rep['static_smem']} bytes of "
+              f"shared memory, the profiler {smem}")
+        check(regs is not None and rep["registers"] == int(regs),
+              f"lint GL5 {name}: ptxas {rep['registers']} registers, the profiler {regs}")
+        print(f"[lint]   {name}: {launch.threads} / {block} | {want_smem} (D={D}) + "
+              f"{rep['static_smem']} = {smem} | {rep['registers']} = {regs}")
+    print(f"[lint] GL5 twin: all {len(gl5)} instantiations launched and held ({passes} "
+          f"profiler pass(es)); {len(gl5)} = ptxas' {len(ptxas)} entry functions")
+
+
+def phase_lint() -> None:
+    """The port's gridlint on the card's machine: (a) the lint, strict
+    against its baseline; (b) GL1's dynamic twin, the sync debug mode over a
+    fused round and a serving request; (c) GL5's twin against ptxas and the
+    profiler. Any failure raises."""
+    _lint_run()
+    _lint_syncs()
+    # (c) in a fresh interpreter: after the other phases in this process the
+    # profiler returned launch records of only some of the kernels it ran
+    # (two whole runs; alone after the build it returned all of them)
+    sys.stdout.flush()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke as c; c._lint_bounds()"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), timeout=900,
+    )
+    check(proc.returncode == 0, f"lint GL5 twin: exit {proc.returncode} (its output is above)")
+    print(card_line())
+
 
 def main() -> int:
     check(torch.cuda.is_available(), "no CUDA GPU: chip_smoke.py runs on the card only")
@@ -3766,6 +4123,7 @@ def main() -> int:
     for name, n in phase_storm().items():
         launches[name] += n
     phase_deploy()
+    phase_lint()
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -366,6 +366,13 @@ class GenerationEngine:
         #: a standing hold of EVERY block (chaos_hold_blocks(None)): it
         #: also claims the blocks that free while it stands
         self._chaos_hold_all = False
+        #: the queue-head row whose pages could not be assigned: with no
+        #: live slot the loop waits on _work until a path that frees
+        #: blocks clears it (see _unpark), instead of retrying in a spin
+        self._parked: _Row | None = None
+        #: bumped by every unpark, so a release that lands while
+        #: admission is failing is not lost to a late park
+        self._unparks = 0
 
     # ── client surface (any thread) ─────────────────────────────────────
 
@@ -676,9 +683,15 @@ class GenerationEngine:
             self._chaos_hold_all = False
         if held:
             self._pool.release(held)
-            with self._work:
-                self._work.notify_all()
+        self._unpark()
         return len(held)
+
+    def _unpark(self) -> None:
+        """Blocks may have freed: let a parked queue head try again."""
+        with self._work:
+            self._parked = None
+            self._unparks += 1
+            self._work.notify_all()
 
     def compile_count(self) -> int:
         return self.programs.compile_count()
@@ -713,6 +726,7 @@ class GenerationEngine:
             retired += self._pool.retire(n - retired)
         with self._lock:
             self._shrunk_blocks += retired
+        self._unpark()
         return retired
 
     def warmup(self, prompt_lens: tuple[int, ...] = ()) -> None:
@@ -832,7 +846,16 @@ class GenerationEngine:
     def _loop(self) -> None:
         while True:
             with self._work:
-                while self._running and not self._queue and self._live == 0:
+                # idle, or the queue head is parked on the block pool
+                # with nothing live to free blocks: sleep until work
+                # arrives or a release unparks the head
+                while (
+                    self._running
+                    and self._live == 0
+                    and (
+                        not self._queue or self._queue[0] is self._parked
+                    )
+                ):
                     self._work.wait()
                 if not self._running:
                     return
@@ -879,19 +902,34 @@ class GenerationEngine:
                 )
                 if slot is None:
                     return
-                row = self._queue.popleft()
-                self._slots[slot] = row
-                self._live += 1
+                # peek: the row leaves the queue only once it is placed,
+                # so ledger() never sees it between queue and slot
+                row = self._queue[0]
+                unparks = self._unparks
             if self._paged and not self._assign_pages(slot, row):
                 # block pool exhausted even after prefix-cache
-                # eviction: park the row at the queue HEAD (FIFO order
-                # kept) until a completing request frees blocks — the
-                # loop keeps stepping the live slots, so progress is
-                # guaranteed
+                # eviction: the row stays parked at the queue HEAD
+                # (FIFO order kept) until a completing request or a
+                # release frees blocks — the loop keeps stepping the
+                # live slots, and waits when there are none
                 with self._lock:
-                    self._slots[slot] = None
-                    self._live = max(0, self._live - 1)
-                    self._queue.appendleft(row)
+                    if self._unparks == unparks:
+                        self._parked = row
+                return
+            with self._lock:
+                placed = bool(self._queue) and self._queue[0] is row
+                if placed:
+                    self._queue.popleft()
+                    self._slots[slot] = row
+                    self._live += 1
+            if not placed:
+                # close() failed the queue meanwhile: give back what was
+                # assigned and stop
+                if self._paged and row.pages is not None:
+                    self._pool.release(row.pages)
+                    row.pages = None
+                    self._table_np[slot, :] = 0
+                    self._table_dirty = True
                 return
             now = time.perf_counter()
             row.admitted_at = now
@@ -1253,6 +1291,7 @@ class GenerationEngine:
         with self._lock:
             self._demand_pages = max(0, self._demand_pages - row.demand)
             row.demand = 0
+        self._unpark()
 
     def _fail_all(self, err: Exception, reset_cache: bool = True) -> None:
         cache = None

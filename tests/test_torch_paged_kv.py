@@ -8,8 +8,9 @@ packages' ``BlockPool`` and ``PrefixCache`` and compares every result and
 ``generate`` (f32 and a bf16 cache), prefix sharing copy-on-write, busy
 on block exhaustion, an impossible request as a typed defect, exact
 refcounts after mixed outcomes, no program built under prefix variety, a
-standing chaos hold that parks admission until its release, and live
-re-partitioning of one device budget.
+standing chaos hold that parks admission until its release (the parked row
+stays queued and the engine thread sleeps), and live re-partitioning of one
+device budget.
 """
 
 from __future__ import annotations
@@ -447,6 +448,32 @@ def test_standing_chaos_hold_parks_admission_until_release(params):
         assert led["queue_depth"] == 1 and led["live_slots"] == 0
         assert led["chaos_held"] == held  # nothing freed yet: the cache was not evicted
         assert eng.chaos_release_blocks() == held
+        np.testing.assert_array_equal(future.result(timeout=30), _ref(params, [[7, 3, 9]], 4))
+        assert eng.ledger()["drained"] and eng.ledger()["balanced"]
+    finally:
+        eng.close()
+
+
+def test_parked_row_stays_queued_and_engine_thread_sleeps(params):
+    """A row parked by a standing hold never leaves the queue in ``ledger()``
+    (admission peeks at the head and pops only once pages are assigned), and
+    with no live slot the engine thread waits for a release instead of
+    retrying admission in a loop that holds a host core."""
+    eng = _paged_engine(params, num_blocks=6)
+    try:
+        eng.chaos_hold_blocks(None)
+        future = eng.enqueue(np.array([[7, 3, 9]], np.int32), 4)
+        with pytest.raises(concurrent.futures.TimeoutError):
+            future.result(timeout=0.2)
+        reads = [eng.ledger() for _ in range(2000)]
+        bad = [(r["queue_depth"], r["live_slots"]) for r in reads
+               if (r["queue_depth"], r["live_slots"]) != (1, 0)]
+        assert not bad, f"{len(bad)} of {len(reads)} reads saw the row in transit: {bad[:5]}"
+        cpu0 = time.process_time()
+        time.sleep(1.0)
+        spent = time.process_time() - cpu0
+        assert spent < 0.3, f"the parked engine used {spent:.3f} s of CPU in 1 s"
+        eng.chaos_release_blocks()
         np.testing.assert_array_equal(future.result(timeout=30), _ref(params, [[7, 3, 9]], 4))
         assert eng.ledger()["drained"] and eng.ledger()["balanced"]
     finally:
