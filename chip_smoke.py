@@ -193,8 +193,12 @@ the script exits non-zero:
               torch.cuda.set_sync_debug_mode("warn"): every sync must have a
               pygrid_tpu_torch frame, and one whose stack holds a program
               body must sit in a body GL1 reaches, on a line GL102
-              reported; the syncs outside programs are printed, per quantum
-              for the engine; (c) GL5's
+              reported, and no sync may sit inside a program at all (the
+              programs' host inputs cross pinned and non-blocking); the
+              same request is then sampled at temperature 0.8 under the
+              same checks, and the greedy tokens are held against
+              generate()'s; the syncs outside programs are printed, per
+              quantum for the engine; (c) GL5's
               twin: each kernel instantiation GL5 resolves from csrc/ must be
               an entry function of ptxas' report and vice versa, and, for
               each launched under torch.profiler (bf16 D 40/64/128/256, f32
@@ -203,6 +207,13 @@ the script exits non-zero:
               the profiler's, and ptxas' registers the profiler's (in a fresh
               interpreter: after the other phases the profiler returns
               launch records of only some kernels).
+21. examples — the port's examples (examples_torch/, the twins of
+              examples/) on the card, in this process through each script's
+              main(argv) at --device cuda: each must return 0 and print its
+              JAX twin's success line; fed_transformer.py must launch the
+              three flash kernels and smpc_demo.py and encrypted_inference.py
+              the ring kernel (their launches join the kernels line). Each
+              example's wall time and launches are printed beside the card.
 
 ``python3 chip_smoke.py --mesh-world N`` builds the kernels and runs only
 phase mesh, on N GPUs of one machine (one spawned process each, NCCL across
@@ -3846,6 +3857,13 @@ def _classify_syncs(tag, stacks, gl1, gl102) -> dict:
     return outside
 
 
+def _no_syncs_in_programs(tag, stacks, outside) -> None:
+    """Every sync of a run lies outside the programs: their host inputs
+    cross in pinned memory without waiting for the stream."""
+    inside = len(stacks) - sum(outside.values())
+    check(inside == 0, f"lint {tag}: {inside} syncs inside programs (listed above)")
+
+
 def _lint_syncs() -> None:
     """(b) The GL1 twin: one fused FedAvg round and one serving request
     (phase rounds' and phase serving's configurations, full width) under
@@ -3875,6 +3893,8 @@ def _lint_syncs() -> None:
           f"{n_bodies} function bodies in {len(gl1.closure)} files; "
           f"{sum(len(v) for v in gl102.values())} GL102 lines")
 
+    from pygrid_tpu_torch.models import decode
+
     cfg, K, B = full_config(), 8, 4
     params, X, y = transformer_setup(cfg, K, B, "cuda")
     loss_fn = partial(transformer.loss_and_acc, cfg=cfg, attn_fn=fa.flash_attention,
@@ -3895,6 +3915,7 @@ def _lint_syncs() -> None:
     check(_finite(losses), "lint fused round: non-finite loss")
     outside = _classify_syncs(f"one fused FedAvg round (K={K}, B={B}, flash launches {counts})",
                               stacks, gl1, gl102)
+    _no_syncs_in_programs("fused round", stacks, outside)
 
     engine = GenerationEngine(cfg, params, EngineConfig(max_slots=8, cache_dtype=torch.float32),
                               model_id="lint", device="cuda")
@@ -3909,14 +3930,32 @@ def _lint_syncs() -> None:
         quanta = engine.stats()["fused_scans"] - quanta0
         check(np.asarray(toks).shape == (1, n_new), f"lint serving: tokens {np.shape(toks)}")
         check(quanta >= 1, "lint serving: no fused quantum ran")
+        # the same request sampled: the sampling programs' PRNG draws
+        quanta0 = engine.stats()["fused_scans"]
+        sampled, s_stacks = _sync_stacks(lambda: engine.submit(
+            cases[0][0], n_new, temperature=0.8, seed=11, timeout=300))
+        s_quanta = engine.stats()["fused_scans"] - quanta0
+        s_toks = np.asarray(sampled)
+        check(s_toks.shape == (1, n_new) and bool(((s_toks >= 0) & (s_toks < cfg.vocab)).all()),
+              f"lint serving: sampled tokens {s_toks.shape} or out of the vocabulary")
     finally:
         engine.close()
+    ref = decode.generate(params, torch.from_numpy(cases[0][0]).long().to("cuda"), n_new,
+                          cfg).cpu().numpy()
+    _serve_match("lint greedy request", params, cfg, [(cases[0][0], n_new)], [toks], [ref], "cuda")
+    print(f"[lint] greedy request: tokens equal to generate()'s: "
+          f"{bool(np.array_equal(np.asarray(toks), ref))} (else a near tie, checked above)")
     outside = _classify_syncs(f"one serving request (1 prefill, {quanta} fused quanta of "
                               f"{engine.config.quantum} steps)", stacks, gl1, gl102)
+    _no_syncs_in_programs("greedy serving request", stacks, outside)
     fused = sum(n for (_, fn), n in outside.items() if fn == "_fused_scan")
     print(f"[lint] serving: {sum(outside.values())} syncs outside programs for 1 admission and "
           f"{quanta} fused quanta; {fused} of them in _fused_scan: {fused / quanta:.2f} a "
           "quantum (the design: one token fetch a quantum)")
+    s_outside = _classify_syncs(f"the same request at temperature 0.8 (1 prefill, {s_quanta} "
+                                "fused quanta)", s_stacks, gl1, gl102)
+    _no_syncs_in_programs("sampled serving request", s_stacks, s_outside)
+    print(f"[lint] sampled serving: {sum(s_outside.values())} syncs outside programs")
 
 
 def _demangle(name: str) -> tuple[str, tuple[int, ...]] | None:
@@ -4083,6 +4122,119 @@ def phase_lint() -> None:
     print(card_line())
 
 
+EXAMPLES = [
+    # script under examples_torch/, its arguments beside --device cuda, and
+    # the success line its JAX twin's test asserts
+    ("smpc_demo.py", (), "Beaver"),
+    ("model_centric/01_create_plan.py", ("--spawn",), "hosted mnist/1.0"),
+    ("model_centric/02_execute_plan.py", (), "latest checkpoint"),
+    ("data_centric/01_populate_node.py", ("--spawn",), "8 pointers"),
+    ("full_fl_demo.py", ("--spawn", "--workers", "2", "--cycles", "2"), "latest checkpoint"),
+    ("data_centric/02_train_model.py", ("--spawn",), "max |w - w*|"),
+    ("encrypted_inference.py", ("--spawn",), "encrypted inference OK"),
+    ("advanced_fl.py", ("--spawn",), "advanced FL OK"),
+    ("secagg_fl.py", ("--spawn",), "secure aggregation OK"),
+    ("async_fl.py", ("--spawn",), "async FL OK"),
+    ("fed_transformer.py", (), "federated transformer"),
+]
+#: the kernels each example must launch on the card
+EXAMPLE_KERNELS = {
+    "smpc_demo.py": ("ring_matmul",),
+    "encrypted_inference.py": ("ring_matmul",),
+    "fed_transformer.py": ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"),
+}
+
+
+def _example_main(script: str):
+    """The ``main(argv)`` of ``examples_torch/<script>``, loaded from its file
+    (the scripts' names are not module names)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "examples_torch" / script
+    spec = importlib.util.spec_from_file_location(
+        "example_" + script.replace("/", "_").removesuffix(".py"), path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.main
+
+
+def _captured(fn):
+    """Run ``fn`` with file descriptor 1 going to a temporary file, so that
+    the output of Python and of any child process is caught; returns (its
+    result, that output)."""
+    import tempfile
+
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with tempfile.TemporaryFile() as tmp:
+        os.dup2(tmp.fileno(), 1)
+        try:
+            out = fn()
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+        tmp.seek(0)
+        text = tmp.read().decode(errors="replace")
+    return out, text
+
+
+def phase_examples(device="cuda") -> dict:
+    """The port's examples (``examples_torch/``) on the card, in process
+    through each script's ``main(argv)`` at ``--device cuda``, so that the
+    launch counts see them: each must return 0 and print its success line;
+    fed_transformer.py must launch the three flash kernels and
+    smpc_demo.py and encrypted_inference.py the ring kernel. Prints each
+    example's wall time and launches. Returns the launches by kernel."""
+    from pygrid_tpu_torch import web
+    from pygrid_tpu_torch.node import create_app
+
+    print(f"[examples] {card_line()}; examples_torch/ at --device {device}")
+    counters = _counters()
+    total = {name: 0 for name in KERNELS}
+    walls = {}
+    t_all = time.perf_counter()
+    for script, args, line in EXAMPLES:
+        main = _example_main(script)
+        argv = [*args, "--device", device]
+        node = None
+        if script == "model_centric/02_execute_plan.py":
+            # it trains against a hosted process: host one first on a node
+            node = web.BackgroundServer(create_app("alice", device=device)).start()
+            argv += ["--node", node.url]
+            rc, text = _captured(lambda: _example_main("model_centric/01_create_plan.py")(
+                ["--node", node.url, "--device", device]))
+            check(rc == 0 and "hosted mnist/1.0" in text,
+                  f"examples: 01_create_plan.py --node failed (rc {rc}):\n{text[-3000:]}")
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            rc, text = _captured(lambda: main(argv))
+        finally:
+            if node is not None:
+                node.stop()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {k: n for c in counters.values() for k, n in c.launch_counts().items()}
+        walls[script] = secs
+        check(rc == 0, f"examples: {script} returned {rc}:\n{text[-3000:]}")
+        check(line in text, f"examples: {script} printed no {line!r}:\n{text[-3000:]}")
+        for name in EXAMPLE_KERNELS.get(script, ()):
+            check(counts[name] > 0, f"examples: {script} launched no {name}: {counts}")
+        for name, n in counts.items():
+            total[name] += n
+        said = next(t for t in text.splitlines() if line in t)
+        print(f"[examples] {script} {' '.join(argv)}: {secs:.2f} s wall; launches "
+              f"{ {k: n for k, n in counts.items() if n} or 'none'}; {said.strip()[:160]!r}")
+    print(f"[examples] all {len(EXAMPLES)} passed in {time.perf_counter() - t_all:.2f} s of wall "
+          f"({', '.join(f'{s} {w:.2f}' for s, w in walls.items())}); launches {total}; "
+          f"{card_line()}")
+    return total
+
+
 def main() -> int:
     check(torch.cuda.is_available(), "no CUDA GPU: chip_smoke.py runs on the card only")
     import pygrid_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
@@ -4124,6 +4276,8 @@ def main() -> int:
         launches[name] += n
     phase_deploy()
     phase_lint()
+    for name, n in phase_examples().items():
+        launches[name] += n
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

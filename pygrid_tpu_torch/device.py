@@ -19,6 +19,8 @@ from __future__ import annotations
 
 import torch
 
+from pygrid_tpu_torch.utils.exceptions import DeviceUnavailableError
+
 
 def pin_f32() -> None:
     """Turn TF32 off for cuDNN convolutions and cuBLAS matmuls, so f32
@@ -28,12 +30,14 @@ def pin_f32() -> None:
 
 
 def resolve(device: str | torch.device = "cuda") -> torch.device:
-    """``device`` as a ``torch.device``; raises if it names CUDA and no
-    GPU is present, and pins f32 (:func:`pin_f32`) when it is CUDA."""
+    """``device`` as a ``torch.device``; raises
+    :class:`~pygrid_tpu_torch.utils.exceptions.DeviceUnavailableError` (a
+    ``RuntimeError`` too) if it names CUDA and no GPU is present, and pins
+    f32 (:func:`pin_f32`) when it is CUDA."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
-            raise RuntimeError(
+            raise DeviceUnavailableError(
                 f"device {str(dev)!r} requested but no CUDA GPU is available; "
                 "pass device='cpu' to run on the CPU"
             )

@@ -188,6 +188,16 @@ def _clip(i: int, n: int) -> int:
     return min(max(i, 0), n - 1)
 
 
+def _set_pos(pos: torch.Tensor, slot: int, length: int) -> None:
+    """``pos.at[slot].set(length)``: an out-of-range slot is dropped. The
+    fill takes ``length`` as a kernel argument, so nothing crosses from
+    the host and the stream is not waited on."""
+    S = pos.shape[0]
+    slot = int(slot)
+    if -S <= slot < S:
+        pos.narrow(0, slot % S, 1).fill_(int(length))
+
+
 def _take(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``table[idx]`` with the reference's gather semantics: negative
     indices count from the end, then every index is clamped in range."""
@@ -415,8 +425,7 @@ def prefill_slot(
     h_last = h[_clip(length - 1, P)]
     h_last = _ln(h_last, params[idx], params[idx + 1])
     logits = _logits(c(h_last)[None], c(embed))[0]
-    if -S <= slot < S:  # .at[slot].set drops an out-of-range slot
-        cache.pos[slot] = int(length)
+    _set_pos(cache.pos, slot, length)
     return logits, cache
 
 
@@ -585,9 +594,7 @@ def paged_prefill_chunk(
     h_last = h[_clip(length - 1 - start, Pb)]
     h_last = _ln(h_last, params[idx], params[idx + 1])
     logits = _logits(c(h_last)[None], c(embed))[0]
-    S = cache.pos.shape[0]
-    if -S <= slot < S:
-        cache.pos[slot] = int(length)
+    _set_pos(cache.pos, slot, length)
     return logits, cache
 
 

@@ -14,6 +14,7 @@ from typing import Sequence
 import torch
 
 from pygrid_tpu_torch.device import resolve
+from pygrid_tpu_torch.utils import prng
 
 
 def param_shapes(sizes: Sequence[int] = (784, 392, 10)) -> list[tuple[int, ...]]:
@@ -33,11 +34,32 @@ def init(
     ``generator`` (seed 0 when None) and moved to ``device``."""
     dev = resolve(device)
     g = generator if generator is not None else torch.Generator().manual_seed(0)
+    draws = (lambda shape: torch.randn(shape, generator=g) for _ in sizes[1:])
+    return [p.to(dev) for p in _draw(sizes, draws)]
+
+
+def _draw(sizes: Sequence[int], normals) -> list[torch.Tensor]:
+    """He-normal weights (layer ``i`` from the ``i``-th of ``normals``,
+    each a ``normal(shape)``) and zero biases, on the CPU."""
     params: list[torch.Tensor] = []
-    for n_in, n_out in zip(sizes[:-1], sizes[1:]):
-        params.append(torch.randn((n_in, n_out), generator=g) * (2.0 / n_in) ** 0.5)
+    for normal, n_in, n_out in zip(normals, sizes[:-1], sizes[1:]):
+        params.append(normal((n_in, n_out)) * (2.0 / n_in) ** 0.5)
         params.append(torch.zeros(n_out))
-    return [p.to(dev) for p in params]
+    return params
+
+
+def init_from_key(
+    key: torch.Tensor,
+    sizes: Sequence[int] = (784, 392, 10),
+    device: str | torch.device = "cuda",
+) -> list[torch.Tensor]:
+    """The reference's ``mlp.init(key, sizes)``: the same ``jax.random``
+    draws through :mod:`pygrid_tpu_torch.utils.prng` (each weight within a
+    few f32 ulps), for a threefry ``key`` ``[2]``, moved to ``device``."""
+    dev = resolve(device)
+    keys = prng.split(key.cpu(), len(sizes) - 1)
+    draws = (lambda shape, k=k: prng.normal(k, shape) for k in keys)
+    return [p.to(dev) for p in _draw(sizes, draws)]
 
 
 def apply(params: Sequence[torch.Tensor], X: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from pygrid_tpu_torch.device import resolve
 from pygrid_tpu_torch.parallel.ring_attention import attention
+from pygrid_tpu_torch.utils import prng
 
 
 class TransformerConfig(NamedTuple):
@@ -58,20 +59,37 @@ def init(
     tests carry the reference's params across with :mod:`..convert`."""
     dev = resolve(device)
     g = generator if generator is not None else torch.Generator().manual_seed(0)
+    return [p.to(dev) for p in _draw(cfg, lambda shape: torch.randn(shape, generator=g))]
+
+
+def _draw(cfg: TransformerConfig, normal: Callable) -> list[torch.Tensor]:
+    """The flat param list on the CPU, each weight ``normal(shape)`` times
+    its scale, in the reference's order of draws."""
     d, f = cfg.d_model, cfg.d_ff
-
-    def normal(shape, std):
-        return torch.randn(shape, generator=g) * std
-
     sd = d**-0.5
-    params = [normal((cfg.vocab, d), sd), normal((cfg.max_len, d), sd)]
+    params = [normal((cfg.vocab, d)) * sd, normal((cfg.max_len, d)) * sd]
     for _ in range(cfg.n_layers):
         params += [torch.ones(d), torch.zeros(d)]  # ln1
-        params += [normal((d, d), sd) for _ in range(4)]  # wq wk wv wo
+        params += [normal((d, d)) * sd for _ in range(4)]  # wq wk wv wo
         params += [torch.ones(d), torch.zeros(d)]  # ln2
-        params += [normal((d, f), sd), torch.zeros(f), normal((f, d), f**-0.5), torch.zeros(d)]
+        params += [normal((d, f)) * sd, torch.zeros(f), normal((f, d)) * f**-0.5,
+                   torch.zeros(d)]
     params += [torch.ones(d), torch.zeros(d)]  # final ln
-    return [p.to(dev) for p in params]
+    return params
+
+
+def init_from_key(
+    key: torch.Tensor,
+    cfg: TransformerConfig = TransformerConfig(),
+    device: str | torch.device = "cuda",
+) -> list[torch.Tensor]:
+    """The reference's ``transformer.init(key, cfg)``: the same
+    ``jax.random`` draws through :mod:`pygrid_tpu_torch.utils.prng` (each
+    weight within a few f32 ulps), for a threefry ``key`` ``[2]``, moved
+    to ``device``."""
+    dev = resolve(device)
+    keys = iter(prng.split(key.cpu(), 2 + 6 * cfg.n_layers))
+    return [p.to(dev) for p in _draw(cfg, lambda shape: prng.normal(next(keys), shape))]
 
 
 def _dtype(compute_dtype: Any) -> torch.dtype | None:

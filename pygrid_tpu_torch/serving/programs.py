@@ -157,11 +157,25 @@ class ProgramSet:
 
     # ── host inputs ─────────────────────────────────────────────────────
 
+    def _stage(self, x, dtype) -> torch.Tensor:
+        """``x`` on the program's device without waiting for the stream.
+
+        ``np.array`` takes a copy first, so the engine may reuse its own
+        arrays as soon as the call returns. On a CUDA device that copy is
+        pinned and crosses with ``non_blocking=True``: the pinned block
+        belongs to PyTorch's caching host allocator, which records the
+        copy's stream and hands the block out again only after the copy
+        has landed."""
+        host = torch.from_numpy(np.array(x, dtype=dtype))
+        if self.device.type != "cuda":
+            return host
+        return host.pin_memory().to(self.device, non_blocking=True)
+
     def _ints(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x), dtype=torch.int64).to(self.device)
+        return self._stage(x, np.int64)
 
     def _floats(self, x) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(x), dtype=torch.float32).to(self.device)
+        return self._stage(x, np.float32)
 
     @staticmethod
     def _pick(logits, temps, keys):
@@ -384,7 +398,7 @@ class ProgramSet:
             def _spec_verify(
                 params, dparams, k, v, pos, dk, dv, table, tokens, active, temps, keys,
             ):
-                act = torch.as_tensor(np.asarray(active), dtype=torch.bool).to(self.device)
+                act = self._stage(active, np.bool_)
                 pick, keys_d = self._picker(temps, keys)  # keys_d [w, K, 2]
                 w = act.shape[0]
                 # the draft steps on its OWN copy of the positions; the

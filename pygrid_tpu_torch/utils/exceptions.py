@@ -15,6 +15,10 @@ class PyGridError(Exception):
         super().__init__(message or self.__class__.__doc__ or self.__class__.__name__)
 
 
+class DeviceUnavailableError(PyGridError, RuntimeError):
+    """The requested CUDA device is not available!"""
+
+
 class AuthorizationError(PyGridError):
     """User is not authorized for this operation!"""
 

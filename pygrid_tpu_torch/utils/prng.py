@@ -20,6 +20,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from pygrid_tpu_torch.device import resolve
@@ -88,7 +89,10 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in(key, data)`` of each key; ``data`` is an int or
     an integer tensor broadcasting against ``keys[..., 0]``."""
     keys = _check_keys(keys)
-    data = torch.as_tensor(data, dtype=torch.int64, device=keys.device) & _MASK
+    if isinstance(data, torch.Tensor):
+        data = data.to(keys.device, torch.int64) & _MASK
+    else:  # a Python int fills on the device: no host-to-device copy
+        data = torch.full_like(keys[..., 0], int(data) & _MASK)
     b1, b2 = threefry2x32(keys[..., 0], keys[..., 1], torch.zeros_like(data), data)
     return torch.stack(torch.broadcast_tensors(b1, b2), dim=-1)
 
@@ -110,12 +114,49 @@ def uniform(
     bits = random_bits(keys, shape)
     one = 0x3F800000  # 1.0f
     floats = ((bits >> 9) | one).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=floats.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=floats.device)
+    # the bounds stay host scalars (kernel arguments, no copy): each is
+    # rounded to f32, and hi - lo is an f32 difference, as in the reference
+    lo = np.float32(minval)
+    span = float(np.float32(maxval) - lo)
     # XLA fuses the scale and shift into one FMA: the f64 product of two
     # f32 values is exact, so the sum rounds (to f32) as the FMA does
-    scaled = (floats.double() * (hi - lo).double() + lo.double()).float()
-    return torch.maximum(lo, scaled)
+    scaled = (floats.double() * span + float(lo)).float()
+    return scaled.clamp_min(float(lo))
+
+
+# XLA's single-precision erf_inv (Giles' polynomials in w = -log1p(-x²)),
+# for w < 5 and for w >= 5, highest degree first
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erfinv_f32(x: torch.Tensor) -> torch.Tensor:
+    """XLA's f32 ``erf_inv``: each Horner step rounds once, as the FMA the
+    reference's compiler emits (an f64 product of two f32 values is
+    exact). Within 3 f32 ulps of it; the rest is ``log1p``'s."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+
+    def coef(i):
+        return torch.where(lt, _ERFINV_LT5[i], _ERFINV_GE5[i]).float().double()
+
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = (coef(i) + p * w).float().double()
+    out = p.float() * x
+    return torch.where(x.abs() == 1.0, x * torch.finfo(torch.float32).max, out)
+
+
+def normal(keys: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:
+    """``jax.random.normal`` in f32: ``sqrt(2) * erf_inv(u)`` of a uniform
+    ``u`` in (-1, 1). The uniform is the reference's bit for bit; the
+    result within a few f32 ulps (:func:`_erfinv_f32`)."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(keys, shape, minval=lo, maxval=1.0)
+    return _erfinv_f32(u) * float(np.float32(np.sqrt(2)))
 
 
 def gumbel(keys: torch.Tensor, shape: Sequence[int] = ()) -> torch.Tensor:

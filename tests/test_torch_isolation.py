@@ -51,20 +51,29 @@ def _banned(name: str) -> bool:
     return name.split(".")[0] in BANNED
 
 
-_BLOCKED_IMPORT = textwrap.dedent(
+def meta_path_block(blocked) -> str:
+    """Source that makes a fresh interpreter refuse every import whose
+    top-level name is in ``blocked``, with the repo first on its path."""
+    return textwrap.dedent(
+        f"""
+        import importlib, importlib.abc, sys
+        sys.path.insert(0, {str(ROOT)!r})
+
+        BLOCKED = {tuple(blocked)!r}
+
+        class Block(importlib.abc.MetaPathFinder):
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BLOCKED:
+                    raise ImportError("blocked: " + name)
+                return None
+
+        sys.meta_path.insert(0, Block())
+        """
+    )
+
+
+_BLOCKED_IMPORT = meta_path_block(BANNED + LAZY) + textwrap.dedent(
     f"""
-    import importlib, importlib.abc, sys
-    sys.path.insert(0, {str(ROOT)!r})
-
-    BLOCKED = {BANNED + LAZY!r}
-
-    class Block(importlib.abc.MetaPathFinder):
-        def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in BLOCKED:
-                raise ImportError("blocked: " + name)
-            return None
-
-    sys.meta_path.insert(0, Block())
     for mod in {_modules()!r} + ["chip_smoke"]:
         importlib.import_module(mod)
 
@@ -411,6 +420,28 @@ def test_node_apps_and_clients_never_import_requests(path):
     modules — at module level or inside a function."""
     bad = [(line, n) for line, n in _imported_names(path) if n.split(".")[0] == "requests"]
     assert not bad, f"{path.name} imports requests at {bad}"
+
+
+#: the examples on the card import none of what its machine lacks
+EXAMPLES_BANNED = BANNED + ("requests", "websockets")
+EXAMPLE_FILES = sorted((ROOT / "examples_torch").rglob("*.py"))
+
+
+@pytest.mark.parametrize("path", EXAMPLE_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_examples_import_no_jax_pygrid_tpu_requests_or_aiohttp(path):
+    """``examples_torch/`` is scanned like the package: no ``jax``, nothing
+    of ``pygrid_tpu``, no ``requests`` or ``aiohttp`` (nor what else the
+    card's machine lacks), at module level or inside a function."""
+    bad = [(line, n) for line, n in _imported_names(path)
+           if n.split(".")[0] in EXAMPLES_BANNED]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_examples_cover_every_jax_example():
+    """Every script of ``examples/`` has its twin at the same path."""
+    jax_side = {p.relative_to(ROOT / "examples") for p in (ROOT / "examples").rglob("*.py")}
+    port_side = {p.relative_to(ROOT / "examples_torch") for p in EXAMPLE_FILES}
+    assert jax_side and jax_side <= port_side, sorted(map(str, jax_side - port_side))
 
 
 def _raised_messages(tree: ast.Module) -> list[tuple[int, str]]:

@@ -11,6 +11,8 @@ subnormals, bf16 -> f32, the f64 accumulate folds and base64.
 from __future__ import annotations
 
 import base64
+import importlib
+import time
 
 import ml_dtypes
 import numpy as np
@@ -22,6 +24,27 @@ from pygrid_tpu_torch.plans.state import serialize_model_params, unserialize_mod
 from pygrid_tpu_torch.serde import deserialize, serialize
 
 BACKENDS = ["native", "numpy"]
+
+#: how long to wait for the JAX package's compiled library to load
+JAX_NATIVE_WAIT_S = 60.0
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_loaded():
+    """The JAX package's compiled path, which every comparison here reads.
+
+    Its build has g++ write the library in place, at its final path, so
+    under xdist one worker can import ``pygrid_tpu.native`` while another
+    is still writing the file: the load fails, and the module stays on its
+    numpy path (ml_dtypes, which makes every NaN canonical) for that
+    worker. Reload it until the finished library loads, within a bound."""
+    deadline = time.monotonic() + JAX_NATIVE_WAIT_S
+    while jnative.BACKEND != "native":
+        if time.monotonic() > deadline:
+            pytest.fail(f"pygrid_tpu.native's compiled library did not load within "
+                        f"{JAX_NATIVE_WAIT_S:.0f} s (BACKEND={jnative.BACKEND!r})")
+        time.sleep(0.5)
+        importlib.reload(jnative)
 
 
 @pytest.fixture(params=BACKENDS)

@@ -119,3 +119,39 @@ def test_card_bits_equal_the_cpu():
     assert torch.equal(k.cpu(), kc)
     assert torch.equal(prng.random_bits(k, (8, 100)).cpu(), prng.random_bits(kc, (8, 100)))
     assert torch.equal(prng.uniform(k, (50,)).cpu(), prng.uniform(kc, (50,)))
+
+
+@pytest.mark.parametrize("shape", [(), (3,), (784, 392), (32, 64)])
+@pytest.mark.parametrize("seed", [0, 42, 2**40 + 5])
+def test_normal_within_three_ulps_of_jax(seed, shape):
+    """``prng.normal`` is ``jax.random.normal``'s uniform bit for bit, then
+    XLA's f32 ``erf_inv`` polynomial: every value within 3 f32 ulps."""
+    want = np.asarray(jax.random.normal(jax.random.PRNGKey(seed), shape))
+    got = _n(prng.normal(prng.PRNGKey(seed, device="cpu"), shape))
+    assert got.dtype == np.float32 and got.shape == want.shape
+    ulps = np.abs(got.view(np.int32).astype(np.int64) - want.view(np.int32).astype(np.int64))
+    assert ulps.max(initial=0) <= 3
+
+
+@pytest.mark.parametrize("model", ["mlp", "transformer"])
+def test_init_from_key_matches_the_reference_init(model):
+    """``init_from_key`` draws what the reference's ``init(key, ...)`` draws:
+    the same shapes, each weight within a few f32 ulps (2e-7 absolute at
+    these scales)."""
+    import importlib
+
+    ref = importlib.import_module(f"pygrid_tpu.models.{model}")
+    port = importlib.import_module(f"pygrid_tpu_torch.models.{model}")
+    if model == "mlp":
+        sizes = (784, 392, 10)
+        want = ref.init(jax.random.PRNGKey(42), sizes)
+        got = port.init_from_key(prng.PRNGKey(42, device="cpu"), sizes, device="cpu")
+    else:
+        kw = dict(vocab=32, d_model=32, n_heads=4, n_layers=2, d_ff=64, max_len=32)
+        want = ref.init(jax.random.PRNGKey(0), ref.TransformerConfig(**kw))
+        got = port.init_from_key(prng.PRNGKey(0, device="cpu"), port.TransformerConfig(**kw),
+                                 device="cpu")
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(_n(g), np.asarray(w), rtol=0, atol=2e-7)
