@@ -150,6 +150,7 @@ def _is_tensor_expr(node: ast.AST) -> bool:
         if d.startswith("torch.") and d not in (
             "torch.device", "torch.dtype", "torch.Size",
             "torch.is_tensor", "torch.is_floating_point",
+            "torch.autograd._profiler_enabled",
         ):
             return True
         return (

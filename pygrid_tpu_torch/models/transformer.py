@@ -24,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from pygrid_tpu_torch.device import resolve
 from pygrid_tpu_torch.parallel.ring_attention import attention
 from pygrid_tpu_torch.utils import prng
+from pygrid_tpu_torch.utils.profiling import region
 
 
 class TransformerConfig(NamedTuple):
@@ -167,19 +168,22 @@ def features(
 
     embed, pos = params[0], params[1]
     B, L = tokens.shape
-    h = c(embed[tokens] + pos[:L])
+    with region("pgt.model.embed"):
+        h = c(embed[tokens] + pos[:L])
     dh = cfg.d_model // cfg.n_heads
 
     def block(h, ln1_s, ln1_b, wq, wk, wv, wo, ln2_s, ln2_b, w1, b1, w2, b2):
-        x = c(_ln(h, ln1_s, ln1_b))
-        q = (x @ c(wq)).reshape(B, L, cfg.n_heads, dh)
-        k = (x @ c(wk)).reshape(B, L, cfg.n_heads, dh)
-        v = (x @ c(wv)).reshape(B, L, cfg.n_heads, dh)
-        a = attn_fn(q, k, v, causal=True).reshape(B, L, cfg.d_model)
-        h = h + c(a) @ c(wo)
-        x = c(_ln(h, ln2_s, ln2_b))
-        mlp = F.gelu(x @ c(w1) + c(b1), approximate="tanh")
-        return h + c(mlp) @ c(w2) + c(b2)
+        # inside the remat wrapper, so its recompute in the backward is one too
+        with region("pgt.model.block"):
+            x = c(_ln(h, ln1_s, ln1_b))
+            q = (x @ c(wq)).reshape(B, L, cfg.n_heads, dh)
+            k = (x @ c(wk)).reshape(B, L, cfg.n_heads, dh)
+            v = (x @ c(wv)).reshape(B, L, cfg.n_heads, dh)
+            a = attn_fn(q, k, v, causal=True).reshape(B, L, cfg.d_model)
+            h = h + c(a) @ c(wo)
+            x = c(_ln(h, ln2_s, ln2_b))
+            mlp = F.gelu(x @ c(w1) + c(b1), approximate="tanh")
+            return h + c(mlp) @ c(w2) + c(b2)
 
     block_fn = _remat(block, remat)
     idx = 2
@@ -219,28 +223,30 @@ class _CEHead(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h2, embed, y1, fwd_cd, bwd_cd):
-        logits = _dot_f32(_cast(h2, fwd_cd), _cast(embed, fwd_cd).T)
-        lse = torch.logsumexp(logits, dim=-1)
-        logit_y = logits.gather(1, y1[:, None])[:, 0]
-        hits = (logits.argmax(-1) == y1).float().sum()
-        ctx.save_for_backward(h2, embed, y1, lse)
-        ctx.fwd_cd, ctx.bwd_cd = fwd_cd, bwd_cd
-        ctx.mark_non_differentiable(hits)
-        return (lse - logit_y).sum(), hits
+        with region("pgt.model.head.fwd"):
+            logits = _dot_f32(_cast(h2, fwd_cd), _cast(embed, fwd_cd).T)
+            lse = torch.logsumexp(logits, dim=-1)
+            logit_y = logits.gather(1, y1[:, None])[:, 0]
+            hits = (logits.argmax(-1) == y1).float().sum()
+            ctx.save_for_backward(h2, embed, y1, lse)
+            ctx.fwd_cd, ctx.bwd_cd = fwd_cd, bwd_cd
+            ctx.mark_non_differentiable(hits)
+            return (lse - logit_y).sum(), hits
 
     @staticmethod
     def backward(ctx, g_loss, _g_hits):
-        h2, embed, y1, lse = ctx.saved_tensors
-        fwd_cd, bwd_cd = ctx.fwd_cd, ctx.bwd_cd
-        logits = _dot_f32(_cast(h2, fwd_cd), _cast(embed, fwd_cd).T)
-        p = torch.exp(logits - lse[:, None])
-        # softmax - onehot, in place on the recomputed tensor: no second
-        # [N, vocab] buffer for the one-hot
-        p[torch.arange(p.shape[0], device=p.device), y1] -= 1.0
-        dlogits = (p * g_loss).to(bwd_cd)
-        dh = _dot_f32(dlogits, embed.to(bwd_cd))
-        dembed = _dot_f32(dlogits.T, h2.to(bwd_cd))
-        return dh.to(h2.dtype), dembed.to(embed.dtype), None, None, None
+        with region("pgt.model.head.bwd"):
+            h2, embed, y1, lse = ctx.saved_tensors
+            fwd_cd, bwd_cd = ctx.fwd_cd, ctx.bwd_cd
+            logits = _dot_f32(_cast(h2, fwd_cd), _cast(embed, fwd_cd).T)
+            p = torch.exp(logits - lse[:, None])
+            # softmax - onehot, in place on the recomputed tensor: no second
+            # [N, vocab] buffer for the one-hot
+            p[torch.arange(p.shape[0], device=p.device), y1] -= 1.0
+            dlogits = (p * g_loss).to(bwd_cd)
+            dh = _dot_f32(dlogits, embed.to(bwd_cd))
+            dembed = _dot_f32(dlogits.T, h2.to(bwd_cd))
+            return dh.to(h2.dtype), dembed.to(embed.dtype), None, None, None
 
 
 def loss_and_acc(

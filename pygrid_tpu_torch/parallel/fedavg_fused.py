@@ -28,6 +28,13 @@ each rank runs its block's local steps and fused final gradient, and the
 aggregation is one all-reduce of the already-reduced gradients (and of
 the block-mean params when ``local_steps > 1``): O(|params|) bytes on the
 wire, never O(K·|params|).
+
+A round names its parts for ``torch.profiler``
+(:func:`pygrid_tpu_torch.utils.profiling.region`, no-ops when no profiler
+records): ``pgt.round.forward`` and ``pgt.round.backward`` around every
+loss and its gradient, and in :func:`make_fused_rounds` ``pgt.round``
+around the round and ``pgt.round.update`` around the param mean and the
+master update.
 """
 
 from __future__ import annotations
@@ -37,13 +44,16 @@ from typing import Callable
 import torch
 
 from pygrid_tpu_torch.parallel import collectives as C
+from pygrid_tpu_torch.utils.profiling import region
 
 
 def _grad(loss_fn: Callable, params, X, y):
     """(loss, acc, grads) of ``loss_fn`` at ``params`` (detached leaves)."""
     leaves = [p.detach().requires_grad_() for p in params]
-    loss, acc = loss_fn(leaves, X, y)
-    grads = torch.autograd.grad(loss, leaves)
+    with region("pgt.round.forward"):
+        loss, acc = loss_fn(leaves, X, y)
+    with region("pgt.round.backward"):
+        grads = torch.autograd.grad(loss, leaves)
     return loss.detach(), acc.detach(), grads
 
 
@@ -120,25 +130,27 @@ def make_fused_rounds(
         raise ValueError("local_steps must be >= 1")
 
     def one_round(p, client_X, client_y, lr):
-        if local_steps == 1:
-            p_k, batched = p, False
-        else:
-            p_k = [
-                _sgd_steps(
-                    loss_fn, p, client_X[i], client_y[i], lr,
-                    local_steps - 1, carry_dtype=carry_dtype,
-                )
-                for i in range(client_X.shape[0])
-            ]
-            batched = True
-        loss, acc, g = _fused_grad_and_metrics(
-            loss_fn, p_k, batched, client_X, client_y
-        )
-        if batched:
-            mean_p = [torch.stack(ps).mean(0) for ps in zip(*p_k)]
-        else:
-            mean_p = p_k
-        new_p = [mp.detach() - lr * gi for mp, gi in zip(mean_p, g)]
+        with region("pgt.round"):
+            if local_steps == 1:
+                p_k, batched = p, False
+            else:
+                p_k = [
+                    _sgd_steps(
+                        loss_fn, p, client_X[i], client_y[i], lr,
+                        local_steps - 1, carry_dtype=carry_dtype,
+                    )
+                    for i in range(client_X.shape[0])
+                ]
+                batched = True
+            loss, acc, g = _fused_grad_and_metrics(
+                loss_fn, p_k, batched, client_X, client_y
+            )
+            with region("pgt.round.update"):
+                if batched:
+                    mean_p = [torch.stack(ps).mean(0) for ps in zip(*p_k)]
+                else:
+                    mean_p = p_k
+                new_p = [mp.detach() - lr * gi for mp, gi in zip(mean_p, g)]
         return new_p, loss, acc
 
     def rounds_fn(params, client_X, client_y, lr):

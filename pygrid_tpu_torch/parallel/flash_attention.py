@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from pygrid_tpu_torch.kernels import build
+from pygrid_tpu_torch.utils.profiling import region
 
 #: launches of each kernel since the last :func:`reset_launch_counts`;
 #: a wrapper adds one where it launches its kernel and nowhere else
@@ -280,18 +281,20 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_fwd(q, k, v, causal, scale)
+        with region("pgt.flash.fwd"):
+            out, lse = flash_fwd(q, k, v, causal, scale)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        do = do.to(q.dtype)
-        delta = softmax_delta(out, do)
-        dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
-        dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+        with region("pgt.flash.bwd"):
+            q, k, v, out, lse = ctx.saved_tensors
+            do = do.to(q.dtype)
+            delta = softmax_delta(out, do)
+            dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
+            dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
         return dq, dk, dv, None, None
 
 

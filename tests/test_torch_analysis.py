@@ -99,6 +99,7 @@ GL1_CASES = {
     "host_ints": ("n = int(width) + float(3)", []),
     "numpy_any": ("if np.any(np.asarray([width]) > 0): pass", []),
     "host_tensor": ("t = torch.as_tensor(np.ones(3))", []),
+    "profiler_flag": ("if torch.autograd._profiler_enabled(): pass", []),
 }
 
 

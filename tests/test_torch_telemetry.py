@@ -8,7 +8,6 @@ answer as the JAX package's do."""
 
 import datetime as dt
 import json
-import os
 import time
 import types
 
@@ -159,22 +158,10 @@ def test_profiling_timed_records_and_syncs():
     profiling.stats.reset()
     with profiling.timed("unit.block", sync=[torch.ones(3), {"x": torch.zeros(2)}]) as box:
         torch.ones(256).sum()
-    result, seconds = profiling.timed_call("unit.call", lambda x: x * 2, torch.arange(4.0))
-    assert box["seconds"] >= 0 and seconds >= 0
-    assert torch.equal(result, torch.arange(4.0) * 2)
+    assert box["seconds"] >= 0
     snap = profiling.stats.snapshot()
-    assert snap["unit.block"]["count"] == 1 and snap["unit.call"]["count"] == 1
+    assert snap["unit.block"]["count"] == 1
     assert profiling._cuda_devices([torch.ones(1), (torch.ones(1),)]) == set()
-
-
-def test_device_trace_writes_a_chrome_trace_and_never_moves_to_the_cpu(tmp_path):
-    with profiling.device_trace(str(tmp_path), device="cpu"):
-        torch.ones(64).cumsum(0)
-    assert os.path.getsize(tmp_path / "trace.json") > 0
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="no CUDA GPU"):
-            with profiling.device_trace(str(tmp_path / "gpu")):
-                pass
 
 
 # ── the profiler and the flight recorder (serving's telemetry) ──────────
