@@ -211,20 +211,82 @@ def apply(
     return logits.reshape(B, L, -1)
 
 
+#: the CE head runs its vocabulary axis at a multiple of this many columns:
+#: rows of 16 bytes in bf16 and in f32, which cuBLAS's Hopper (TMA-fed
+#: ``wgmma``) GEMMs need. At an odd width (GPT-2's 50,257) all four head
+#: products fall back to sm75 ``mma`` kernels of 1-element alignment.
+VOCAB_ALIGN = 8
+
+#: :class:`_CEHead` forwards since the last :func:`reset_head_counts`: all,
+#: those at a padded width, and the pad columns those added
+head_calls = 0
+head_padded_calls = 0
+head_pad_columns = 0
+
+
+def head_counts() -> dict[str, int]:
+    return {
+        "calls": head_calls,
+        "padded_calls": head_padded_calls,
+        "pad_columns": head_pad_columns,
+    }
+
+
+def reset_head_counts() -> None:
+    global head_calls, head_padded_calls, head_pad_columns
+    head_calls = head_padded_calls = head_pad_columns = 0
+
+
+def _padded_embed(embed: torch.Tensor, cd: torch.dtype | None) -> torch.Tensor:
+    """``embed`` [V, d] cast to ``cd`` at [Vp, d], Vp the next multiple of
+    :data:`VOCAB_ALIGN`, with zero rows past V; the plain cast when V is
+    a multiple already."""
+    V, d = embed.shape
+    Vp = -(-V // VOCAB_ALIGN) * VOCAB_ALIGN
+    if Vp == V:
+        return _cast(embed, cd)
+    out = embed.new_empty((Vp, d), dtype=cd or embed.dtype)
+    out[:V].copy_(embed)
+    out[V:].zero_()
+    return out
+
+
+def _head_logits(
+    h2: torch.Tensor, embed: torch.Tensor, cd: torch.dtype | None
+) -> torch.Tensor:
+    """f32 logits [N, Vp] of ``h2`` against the padded tied embedding, both
+    cast to ``cd``, with the pad columns at -inf: they add exp(-inf) = 0 to
+    the log-sum-exp and never win the argmax. The padded cast lives only
+    for the product, so it is not held across the head's [N, Vp]
+    temporaries."""
+    logits = _dot_f32(_cast(h2, cd), _padded_embed(embed, cd).T)
+    logits[:, embed.shape[0]:].fill_(float("-inf"))
+    return logits
+
+
 class _CEHead(torch.autograd.Function):
     """Tied-embedding CE head with a narrow-dtype backward.
 
     Forward: operands cast to ``fwd_cd`` (the model's compute dtype),
     logits f32-accumulated, f32 log-sum-exp — the plain path's numerics.
     Backward: the logits are RECOMPUTED (the f32 [N, vocab] tensor is never
-    saved; 537 MB at the flagship shape), and ``dlogits = softmax - onehot``
-    and both gradient-matmul operands are cast to ``bwd_cd`` so the two
-    products run in the native dtype. Returns ``(loss_sum, hit_sum)``."""
+    saved; 6.59 GB at GPT-2 small's 32,768 tokens a round), and
+    ``dlogits = softmax - onehot`` and both gradient-matmul operands are
+    cast to ``bwd_cd`` so the two products run in the native dtype.
+    Both directions run at the padded width Vp (:data:`VOCAB_ALIGN`): the
+    embedding's cast copy gets zero rows past V, the pad logits are -inf,
+    so their softmax and ``dlogits`` are exactly 0, and the embedding's
+    gradient keeps its first V rows. Returns ``(loss_sum, hit_sum)``."""
 
     @staticmethod
     def forward(ctx, h2, embed, y1, fwd_cd, bwd_cd):
+        global head_calls, head_padded_calls, head_pad_columns
         with region("pgt.model.head.fwd"):
-            logits = _dot_f32(_cast(h2, fwd_cd), _cast(embed, fwd_cd).T)
+            logits = _head_logits(h2, embed, fwd_cd)
+            pad = logits.shape[1] - embed.shape[0]
+            head_calls += 1
+            head_padded_calls += int(pad > 0)
+            head_pad_columns += pad
             lse = torch.logsumexp(logits, dim=-1)
             logit_y = logits.gather(1, y1[:, None])[:, 0]
             hits = (logits.argmax(-1) == y1).float().sum()
@@ -238,14 +300,14 @@ class _CEHead(torch.autograd.Function):
         with region("pgt.model.head.bwd"):
             h2, embed, y1, lse = ctx.saved_tensors
             fwd_cd, bwd_cd = ctx.fwd_cd, ctx.bwd_cd
-            logits = _dot_f32(_cast(h2, fwd_cd), _cast(embed, fwd_cd).T)
+            logits = _head_logits(h2, embed, fwd_cd)
             p = torch.exp(logits - lse[:, None])
             # softmax - onehot, in place on the recomputed tensor: no second
             # [N, vocab] buffer for the one-hot
             p[torch.arange(p.shape[0], device=p.device), y1] -= 1.0
             dlogits = (p * g_loss).to(bwd_cd)
-            dh = _dot_f32(dlogits, embed.to(bwd_cd))
-            dembed = _dot_f32(dlogits.T, h2.to(bwd_cd))
+            dh = _dot_f32(dlogits, _padded_embed(embed, bwd_cd))
+            dembed = _dot_f32(dlogits.T, h2.to(bwd_cd))[: embed.shape[0]]
             return dh.to(h2.dtype), dembed.to(embed.dtype), None, None, None
 
 

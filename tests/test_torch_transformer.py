@@ -37,12 +37,15 @@ N = B * L
 JFLASH = partial(jax_flash, interpret=True)
 
 
-def _setup(seed=0):
-    jparams = jtf.init(jax.random.PRNGKey(seed), JCFG)
+def _setup(seed=0, vocab=JCFG.vocab):
+    jcfg = JCFG._replace(vocab=vocab)
+    jparams = jtf.init(jax.random.PRNGKey(seed), jcfg)
     np_params = [np.asarray(p) for p in jparams]
-    tparams = convert.params_from_numpy(np_params, device="cpu", cfg=TCFG)
+    tparams = convert.params_from_numpy(
+        np_params, device="cpu", cfg=ttf.TransformerConfig(*jcfg)
+    )
     rng = np.random.default_rng(seed + 1)
-    X = rng.integers(0, JCFG.vocab, (B, L), dtype=np.int32)
+    X = rng.integers(0, vocab, (B, L), dtype=np.int32)
     y = np.roll(X, -1, axis=-1)
     return jparams, tparams, X, y
 
@@ -50,29 +53,30 @@ def _setup(seed=0):
 _JAX_RUNS: dict = {}
 
 
-def _jgrad(kw, seed):
+def _jgrad(kw, seed, vocab=JCFG.vocab):
     """``jax.value_and_grad`` of the JAX loss on ``_setup(seed)``, run once
     per distinct computation. ``remat`` trades memory for recomputation and
     changes no math in either package, so the remat cases are held against
     the plain JAX run: one interpret-mode pass fewer for each."""
     kw = {k: v for k, v in kw.items() if k != "remat"}
-    key = (seed, tuple(sorted(kw.items())))
+    key = (seed, vocab, tuple(sorted(kw.items())))
     if key not in _JAX_RUNS:
-        jparams, _, X, y = _setup(seed)
+        jparams, _, X, y = _setup(seed, vocab)
+        jcfg = JCFG._replace(vocab=vocab)
         _JAX_RUNS[key] = jax.value_and_grad(
             lambda p: jtf.loss_and_acc(
-                p, jnp.asarray(X), jnp.asarray(y), JCFG, JFLASH, **kw
+                p, jnp.asarray(X), jnp.asarray(y), jcfg, JFLASH, **kw
             ),
             has_aux=True,
         )(jparams)
     return _JAX_RUNS[key]
 
 
-def _tgrad(kw, tparams, X, y):
+def _tgrad(kw, tparams, X, y, cfg=TCFG):
     leaves = [p.clone().requires_grad_() for p in tparams]
     loss, acc = ttf.loss_and_acc(
         leaves, torch.from_numpy(X).long(), torch.from_numpy(y).long(),
-        TCFG, fa.flash_attention, **kw,
+        cfg, fa.flash_attention, **kw,
     )
     return loss, acc, torch.autograd.grad(loss, leaves)
 
@@ -92,24 +96,68 @@ def test_loss_and_grads_match_jax_f32(kw):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-5)
 
 
+_BF16_KWS = {
+    "bf16_ce_bwd": {"ce_grad_dtype": "bfloat16"},
+    "bf16_compute": {"compute_dtype": "bfloat16"},
+    "bf16_both": {"compute_dtype": "bfloat16", "ce_grad_dtype": "bfloat16"},
+}
+
+
+# odd vocabularies run the CE head at its padded width (ttf.VOCAB_ALIGN);
+# the embedding's gradient must still come back [V, d]
 @pytest.mark.parametrize(
-    "kw",
+    "kw, vocab",
     [
-        {"ce_grad_dtype": "bfloat16"},
-        {"compute_dtype": "bfloat16"},
-        {"compute_dtype": "bfloat16", "ce_grad_dtype": "bfloat16"},
+        pytest.param(kw, v, id=name if v == JCFG.vocab else f"{name}-v{v}")
+        for v in (JCFG.vocab, 131, 257)
+        for name, kw in _BF16_KWS.items()
     ],
-    ids=["bf16_ce_bwd", "bf16_compute", "bf16_both"],
 )
-def test_bf16_paths_match_jax(kw):
-    _, tparams, X, y = _setup(seed=2)
-    (jl, ja), jg = _jgrad(kw, seed=2)
-    tl, ta, tg = _tgrad(kw, tparams, X, y)
+def test_bf16_paths_match_jax(kw, vocab):
+    _, tparams, X, y = _setup(seed=2, vocab=vocab)
+    (jl, ja), jg = _jgrad(kw, seed=2, vocab=vocab)
+    tl, ta, tg = _tgrad(kw, tparams, X, y, TCFG._replace(vocab=vocab))
     np.testing.assert_allclose(float(tl.detach()), float(jl), rtol=1e-2)
     # a bf16 logit can tip an argmax either way; allow a few per 64 tokens
     np.testing.assert_allclose(float(ta), float(ja), atol=4.0 / N)
+    assert tg[0].shape == (vocab, JCFG.d_model)
     for a, b in zip(tg, jg):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=5e-3)
+
+
+@pytest.mark.parametrize("vocab", [131, 128])
+def test_ce_head_pad_columns_never_count(vocab):
+    """Every real logit is negative, so a pad column left at 0 would win
+    the argmax and enter the log-sum-exp; the head must match a plain
+    log_softmax at width V, and count its padding."""
+    d, n = 16, 40
+    g = torch.Generator().manual_seed(vocab)
+    h2 = torch.rand(n, d, generator=g) + 0.1
+    embed = -(torch.rand(vocab, d, generator=g) + 0.1)
+    y1 = torch.randint(0, vocab, (n,), generator=g)
+    logits = h2 @ embed.T
+    assert (logits < 0).all()
+    ref_loss = -torch.log_softmax(logits, -1).gather(1, y1[:, None]).sum()
+    ref_hits = (logits.argmax(-1) == y1).float().sum()
+
+    ttf.reset_head_counts()
+    loss, hits = ttf._CEHead.apply(h2, embed, y1, None, torch.float32)
+    pad = -vocab % ttf.VOCAB_ALIGN
+    assert ttf.head_counts() == {
+        "calls": 1, "padded_calls": int(pad > 0), "pad_columns": pad
+    }
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-6, atol=0)
+    assert float(hits) == float(ref_hits)
+
+    leaf = embed.clone().requires_grad_()
+    loss, _ = ttf._CEHead.apply(h2, leaf, y1, None, torch.float32)
+    (grad,) = torch.autograd.grad(loss, leaf)
+    e = embed.clone().requires_grad_()
+    (ref_grad,) = torch.autograd.grad(
+        -torch.log_softmax(h2 @ e.T, -1).gather(1, y1[:, None]).sum(), e
+    )
+    assert grad.shape == (vocab, d)
+    torch.testing.assert_close(grad, ref_grad, rtol=1e-5, atol=1e-6)
 
 
 def test_ce_grad_dtype_excludes_ce_chunk():
