@@ -201,7 +201,9 @@ def make_sharded_fused_round(
             local += [torch.stack(ps).mean(0) for ps in zip(*p_k)]
         mean = C.pmean_many(local, mesh, axis)
         n = len(p)
-        g, (loss, acc) = mean[:n], mean[n: n + 2]
+        # copies: a view would keep the whole all-reduced buffer (every
+        # gradient) alive for as long as the caller keeps the loss
+        g, (loss, acc) = mean[:n], (t.clone() for t in mean[n: n + 2])
         mean_p = mean[n + 2:] if batched else p
         new_p = [mp - lr * gi for mp, gi in zip(mean_p, g)]
         return new_p, loss, acc

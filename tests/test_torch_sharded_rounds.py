@@ -117,6 +117,14 @@ def test_sharded_fused_matches_the_jax_sharded_fused_round(w, mesh, local_steps,
     np.testing.assert_allclose(got["acc"], float(acc), rtol=1e-5)
 
 
+def test_sharded_fused_loss_keeps_no_gradient_buffer_alive(w):
+    """The round's loss and accuracy own their storage: a caller that keeps
+    every round's loss (as the benchmark's window does) keeps no
+    all-reduced gradient buffer with it."""
+    for got in w.ranks("fused_loss_storage"):
+        assert got["bytes"].tolist() == [4, 4]
+
+
 def test_sharded_local_steps_validation():
     from pygrid_tpu_torch.models import mlp as tmlp
     from pygrid_tpu_torch.parallel import make_sharded_fused_round as port_round

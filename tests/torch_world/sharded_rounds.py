@@ -71,6 +71,14 @@ def fused_3_bf16(inp):
     return _fused(inp, 3, torch.bfloat16)
 
 
+@case
+def fused_loss_storage(inp):
+    fn = make_sharded_fused_round(mlp.loss_and_acc, _mesh(), local_steps=1)
+    _, loss, acc = fn(_params(inp, "f"), _t(inp["f_X"]), _t(inp["f_y"]), 0.2)
+    return {"bytes": torch.tensor([loss.untyped_storage().nbytes(),
+                                   acc.untyped_storage().nbytes()]).numpy()}
+
+
 def _key(inp, name):
     return torch.from_numpy(inp[name].astype("int64"))
 
