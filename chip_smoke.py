@@ -14,18 +14,28 @@ the script exits non-zero:
               aligned and ragged shapes, and in bf16 the tensor-core
               kernels' tile and layout edges (L around the 64-row tiles,
               D of 40, 64 and 128, a D=36 padded copy, Lq != Lk, q/k/v as
-              strided views of one [B, L, 3, H, D] tensor), and head dims
-              past 128 (136, 200, 256, 512) in both dtypes; dK/dV and dQ
-              must be bit-identical across two launches;
+              strided views of one [B, L, 3, H, D] tensor), head dims
+              past 128 (136, 200, 256, 512) in both dtypes, and values
+              narrower than queries and keys (D_qk 192 / D_v 128 and
+              160 / 96: the narrow-V path, ragged L, Lq != Lk and a
+              strided view, each launch counted as narrow-V); dK/dV and
+              dQ must be bit-identical across two launches;
 3. timing   — each kernel's median time at the main path's shape, beside
               its bound (with its multiple of it and its TFLOP/s), its
               plain version and the PyTorch library call (SDPA, timed by
               device time under torch.profiler); then the wide (D > 128)
               kernels' device time at [32, 512, 2, 256] bf16 causal beside
-              their bound and SDPA's, printed only;
-4. rounds   — the main path: fused FedAvg rounds of the federated
-              transformer at full width (bench_fed_transformer's config),
-              with each kernel's launches counted;
+              their bound and SDPA's, printed only; then the narrow-V
+              kernels at the Moonlight cell's [4, 8192, 16, 192/128]: each
+              launch counted as narrow-V and its outputs at two (b, h)
+              slices held to the plain versions, and its device time beside
+              the bound of its true work (benchmark/work/mla_flash.py's
+              count), printed only;
+4. rounds   — one FedAvg round of the benchmark's Moonlight cell, which
+              must launch each flash kernel once a layer, every launch
+              narrow-V; then the main path: fused FedAvg rounds of the
+              federated transformer at full width (bench_fed_transformer's
+              config), with each kernel's launches counted;
 5. small    — one opaque make_round round, one local_steps=2 fused round
               and the MLP FedAvg round, each with its launches counted;
 6. parity   — small fused rounds on the card against the same rounds on
@@ -201,8 +211,8 @@ the script exits non-zero:
               quantum for the engine; (c) GL5's
               twin: each kernel instantiation GL5 resolves from csrc/ must be
               an entry function of ptxas' report and vice versa, and, for
-              each launched under torch.profiler (bf16 D 40/64/128/256, f32
-              D 64/256, the ring matmul), GL5's threads equal the block the
+              each launched under torch.profiler (bf16 D 40/64/128/256 and
+              192/128, f32 D 64/256, the ring matmul), GL5's threads equal the block the
               card ran, GL5's dynamic shared memory plus ptxas' static bytes
               the profiler's, and ptxas' registers the profiler's (in a fresh
               interpreter: after the other phases the profiler returns
@@ -233,6 +243,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -284,6 +295,17 @@ TC_WIDE_SMEM = {
     "flash_bwd_dq": lambda n: 2 * (2 * 64 * n + 4 * 32) * 136,
 }
 
+# the same kernels on the narrow-V path (D_v <= 128 < D_qk <= 192), one
+# 192-wide chunk: the Q and K tiles at pitch 200, the V and dO tiles at 136.
+# Forward, 64 Q rows and two stages of 64 K rows and 64 V rows; dK/dV, 64 K
+# and 64 V rows and two stages of 16 Q and 16 dO rows, plus lse and Delta;
+# dQ, 64 Q and 64 dO rows and two stages of 32 K and 32 V rows.
+TC_NARROW_V_SMEM = {
+    "flash_fwd": 2 * (3 * 64 * 200 + 2 * 64 * 136),
+    "flash_bwd_dkv": 2 * (64 + 2 * 16) * (200 + 136) + 4 * 4 * 16,
+    "flash_bwd_dq": 2 * (64 + 2 * 32) * (200 + 136),
+}
+
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -329,6 +351,7 @@ def phase_build() -> None:
         if name in TC_WIDE_SMEM:
             sizes += ", " + ", ".join(f"D<={128 * n} {TC_WIDE_SMEM[name](n)} B"
                                       for n in (2, 3, 4))
+            sizes += f", narrow-V D_qk<=192 D_v<=128 {TC_NARROW_V_SMEM[name]} B"
         print(f"[build] {name} tensor-core kernel, dynamic shared memory a block: {sizes}")
 
 
@@ -337,10 +360,12 @@ def phase_build() -> None:
 # --------------------------------------------------------------------------
 
 
-def _inputs(shape_q, Lk, dtype, seed, views=False):
-    """q, k, v, dO; with ``views``, q, k and v are the strided slices of one
-    [B, L, 3, H, D] tensor, as a fused qkv projection gives them."""
+def _inputs(shape_q, Lk, dtype, seed, views=False, Dv=None):
+    """q, k, v, dO (v and dO at head dim ``Dv``, default q's D); with
+    ``views``, q, k and v are the strided slices of one [B, L, 3, H, D]
+    tensor, as a fused qkv projection gives them (v its first Dv columns)."""
     B, Lq, H, D = shape_q
+    Dv = Dv or D
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rnd(*shape):
@@ -348,8 +373,8 @@ def _inputs(shape_q, Lk, dtype, seed, views=False):
 
     if views:
         qkv = rnd(B, Lq, 3, H, D)
-        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], rnd(B, Lq, H, D)
-    return rnd(B, Lq, H, D), rnd(B, Lk, H, D), rnd(B, Lk, H, D), rnd(B, Lq, H, D)
+        return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2, :, :Dv], rnd(B, Lq, H, Dv)
+    return rnd(B, Lq, H, D), rnd(B, Lk, H, D), rnd(B, Lk, H, Dv), rnd(B, Lq, H, Dv)
 
 
 def _err(got, ref, dtype, what):
@@ -371,20 +396,21 @@ def _poison() -> None:
     torch.cuda.synchronize()
 
 
-def compare_case(shape_q, Lk, dtype, causal, seed=0, views=False):
-    """Each kernel against its plain version on the same inputs; returns
-    the max abs error of each. The dK/dV and dQ kernels run twice and must
-    give the same bits (they write each tile once, with no atomics)."""
+def compare_case(shape_q, Lk, dtype, causal, seed=0, views=False, Dv=None):
+    """Each kernel against its plain version on the same inputs (v and dO
+    at head dim ``Dv``, default q's); returns the max abs error of each.
+    The dK/dV and dQ kernels run twice and must give the same bits (they
+    write each tile once, with no atomics)."""
     from pygrid_tpu_torch.parallel import flash_attention as fa
 
-    q, k, v, do = _inputs(shape_q, Lk, dtype, seed, views)
+    q, k, v, do = _inputs(shape_q, Lk, dtype, seed, views, Dv)
     scale = shape_q[-1] ** -0.5
     out_r, lse_r = fa.flash_fwd_reference(q, k, v, causal, scale)
     _poison()
     out_k, lse_k = fa.flash_fwd(q, k, v, causal, scale)
     torch.cuda.synchronize()
-    tag = (f"{tuple(shape_q)} Lk={Lk} {str(dtype)[6:]} causal={causal}"
-           + (" qkv views" if views else ""))
+    tag = (f"{tuple(shape_q)}" + (f" Dv={Dv}" if Dv else "") + f" Lk={Lk} {str(dtype)[6:]} "
+           f"causal={causal}" + (" qkv views" if views else ""))
     errs = {
         "flash_fwd": max(
             _err(out_k, out_r, dtype, f"fwd out {tag}"),
@@ -463,6 +489,29 @@ def phase_kernels() -> dict:
         ((1, 65, 1, 512), 65, True),
     ):
         compare_case(shape_q, Lk, torch.float32, causal)
+    # values narrower than queries and keys: the narrow-V path (multi-head
+    # latent attention's 192/128, and 160/96), ragged L, Lq != Lk and v as
+    # the first D_v columns of a strided qkv view; each launch is counted
+    # as narrow-V. Then 192/128 in f32 and 256/128 in bf16, which take one
+    # width with v zero-padded.
+    from pygrid_tpu_torch.parallel import flash_attention as fa
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    for shape_q, Dv, Lk, causal, views, dtype in (
+        ((2, 129, 2, 192), 128, 129, True, False, bf16),
+        ((1, 65, 2, 192), 128, 127, False, False, bf16),
+        ((1, 97, 3, 160), 96, 97, True, False, bf16),
+        ((2, 127, 2, 192), 128, 127, True, True, bf16),
+        ((1, 512, 4, 192), 128, 512, True, False, bf16),
+        ((1, 100, 2, 192), 128, 100, True, False, f32),
+        ((1, 65, 2, 256), 128, 65, True, False, bf16),
+    ):
+        fa.reset_launch_counts()
+        compare_case(shape_q, Lk, dtype, causal, views=views, Dv=Dv)
+        counts, narrow_v = fa.launch_counts(), fa.narrow_v_counts()
+        narrow = dtype == bf16 and Dv <= 128 < shape_q[-1] <= 192
+        check(all(counts.values()) and narrow_v == (counts if narrow else dict.fromkeys(counts, 0)),
+              f"kernels {shape_q} Dv={Dv} {dtype}: launches {counts}, narrow-V {narrow_v}")
     # the main path's own shape and dtype: these errors go into the JSON line
     return compare_case(MAIN_SHAPE, MAIN_SHAPE[1], torch.bfloat16, True, seed=1)
 
@@ -653,6 +702,138 @@ def phase_timing_wide() -> None:
               f"{dev[name] / bound:.1f}x the bound, {flops / dev[name] / 1e9:.1f} TFLOP/s; "
               + ("SDPA forward" if name == "flash_fwd" else "SDPA backward, all of dq/dk/dv")
               + f" {lib:.4f} ms device time, kernel / library {dev[name] / lib:.2f}")
+
+
+# the narrow-V kernels at the Moonlight cell's attention: 4 rows of 8,192
+# tokens, 16 heads, D_qk 192 (128 nope + 64 rope), D_v 128, bf16, causal
+NARROW_V_SHAPE = (4, 8192, 16, 192, 128)
+
+
+def bounds_narrow_v(shape, dtype, causal):
+    """bounds() at two head widths (benchmark/work/mla_flash.py's count):
+    S = QK^T and every product with Q or K at D_qk, every product with V or
+    dO at D_v; each input read once and each output written once at its own
+    width."""
+    B, L, H, dqk, dv = shape
+    pairs = B * H * causal_pairs(L, L, causal)
+    size = torch.tensor([], dtype=dtype).element_size()
+    tq, tv, row = B * L * H * dqk * size, B * L * H * dv * size, B * H * L * 4
+    work = {
+        "flash_fwd": (2 * (dqk + dv) * pairs, 2 * tq + tv + tv + row),
+        "flash_bwd_dkv": (4 * (dqk + dv) * pairs, 2 * tq + 2 * tv + 2 * row + tq + tv),
+        "flash_bwd_dq": ((4 * dqk + 2 * dv) * pairs, 2 * tq + 2 * tv + 2 * row + tq),
+    }
+    out = {}
+    for name, (flops, nbytes) in work.items():
+        tf, tb = flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
+        out[name] = (max(tf, tb), "operations" if tf > tb else "bytes", flops, nbytes)
+    return out
+
+
+def phase_timing_narrow_v() -> None:
+    """The narrow-V kernels at NARROW_V_SHAPE: one launch of each, every
+    one counted as narrow-V, with its outputs (and lse) at two (b, h)
+    slices of the full rows held to the plain versions (one head's score
+    matrix is 256 MB); then their device time (under torch.profiler, and
+    by events) beside the bound of their true work, and the same attention
+    with v zero-padded to D_qk (the wide kernels' two 128-wide slices, as
+    the model ran before the narrow-V path), printed only."""
+    from pygrid_tpu_torch.parallel import flash_attention as fa
+
+    B, L, H, dqk, dv = NARROW_V_SHAPE
+    dtype, causal = torch.bfloat16, True
+    q, k, v, do = _inputs((B, L, H, dqk), L, dtype, seed=4, Dv=dv)
+    scale = dqk ** -0.5
+    fa.reset_launch_counts()
+    _poison()
+    out, lse = fa.flash_fwd(q, k, v, causal, scale)
+    delta = fa.softmax_delta(out, do)
+    _poison()
+    dk, dv_k = fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale)
+    _poison()
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale)
+    torch.cuda.synchronize()
+    counts, narrow_v = fa.launch_counts(), fa.narrow_v_counts()
+    check(counts == dict.fromkeys(counts, 1) and narrow_v == counts,
+          f"narrow-V {NARROW_V_SHAPE}: launches {counts}, narrow-V {narrow_v}")
+    for b, h in ((0, 0), (B - 1, H - 1)):
+        def one(x, b=b, h=h):
+            return x[b:b + 1, :, h:h + 1]
+
+        row = slice(b * H + h, b * H + h + 1)
+        qs, ks, vs, dos = map(one, (q, k, v, do))
+        tag = f"narrow-V {NARROW_V_SHAPE} bf16 causal at (b, h) = ({b}, {h})"
+        out_r, lse_r = fa.flash_fwd_reference(qs, ks, vs, causal, scale)
+        errs = {"flash_fwd": max(_err(one(out), out_r, dtype, f"fwd out {tag}"),
+                                 _err(lse[row], lse_r, torch.float32, f"fwd lse {tag}"))}
+        dk_r, dv_r = fa.flash_bwd_dkv_reference(qs, ks, vs, dos, lse[row], delta[row], causal,
+                                                scale)
+        errs["flash_bwd_dkv"] = max(_err(one(dk), dk_r, dtype, f"dk {tag}"),
+                                    _err(one(dv_k), dv_r, dtype, f"dv {tag}"))
+        dq_r = fa.flash_bwd_dq_reference(qs, ks, vs, dos, lse[row], delta[row], causal, scale)
+        errs["flash_bwd_dq"] = _err(one(dq), dq_r, dtype, f"dq {tag}")
+        print(f"[kernels] {tag}: " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
+        del out_r, lse_r, dk_r, dv_r, dq_r
+    del dk, dv_k, dq
+    vp, dop = (torch.nn.functional.pad(x, (0, dqk - dv)) for x in (v, do))
+    outp, _ = fa.flash_fwd(q, k, vp, causal, scale)
+    deltap = fa.softmax_delta(outp, dop)
+    calls = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal, scale),
+                      lambda: fa.flash_fwd(q, k, vp, causal, scale)),
+        "flash_bwd_dkv": (lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, scale),
+                          lambda: fa.flash_bwd_dkv(q, k, vp, dop, lse, deltap, causal, scale)),
+        "flash_bwd_dq": (lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, scale),
+                         lambda: fa.flash_bwd_dq(q, k, vp, dop, lse, deltap, causal, scale)),
+    }
+    for name, (bound, by, flops, nbytes) in bounds_narrow_v(NARROW_V_SHAPE, dtype,
+                                                            causal).items():
+        narrow, padded = calls[name]
+        dev, ev, dev_p = device_ms(narrow), time_ms(narrow, iters=5), device_ms(padded)
+        print(f"[timing narrow-V] {name} [{B}, {L}, {H}, {dqk}/{dv}] bf16 causal: device time "
+              f"{dev:.4f} ms ({ev:.4f} ms by events), bound {bound:.4f} ms ({by}; "
+              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), {dev / bound:.2f}x the bound "
+              f"({100 * bound / dev:.2f} % of it), {flops / dev / 1e9:.1f} TFLOP/s of true work; "
+              f"v zero-padded to {dqk} (two 128-wide slices): {dev_p:.4f} ms device time, "
+              f"{dev_p / dev:.2f}x")
+
+
+# the Moonlight cell of the benchmark, whose every attention takes the
+# narrow-V path
+MOONLIGHT_CELL = "moonlight-ep8-fedavg-k4-l8192"
+
+
+def phase_rounds_moonlight() -> None:
+    """One FedAvg round of MOONLIGHT_CELL as the benchmark builds it (its
+    configuration, traffic and port loss), after one round of warm-up,
+    with the flash kernels' launches counted: one of each kernel per
+    layer, every one on the narrow-V path."""
+    from benchmark import harness, traffic
+    from pygrid_tpu_torch.parallel import flash_attention as fa, make_fused_round
+
+    root = Path(__file__).resolve().parent
+    cell = harness.load_cell(root, MOONLIGHT_CELL)
+    ctx = harness.RunContext(root=root, cell=cell, seed=7, seconds=1, trace=False,
+                             device="cuda", t0=0.0, rank=0, world=1, store=None)
+    fam = ctx.family()
+    params = fam.init(cell.config, 7, "cuda")
+    X, y = traffic.batch(cell.traffic, cell.config, 7, 0, "cuda")
+    round_fn = make_fused_round(fam.port_loss(cell.config, cell.spec),
+                                local_steps=cell.spec["local_steps"])
+    round_fn(params, X, y, cell.spec["lr"])
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    round_fn(params, X, y, cell.spec["lr"])
+    torch.cuda.synchronize()
+    counts, narrow_v = fa.launch_counts(), fa.narrow_v_counts()
+    layers = cell.config["port"]["n_layers"]
+    check(counts == dict.fromkeys(counts, layers) and narrow_v == counts,
+          f"{MOONLIGHT_CELL}: one round launched {counts}, narrow-V {narrow_v}, "
+          f"expected {layers} of each, all narrow-V")
+    print(f"[rounds] {MOONLIGHT_CELL}: one round launched {counts}, narrow-V {narrow_v} "
+          f"({layers} layers)")
+    del params, X, y, round_fn
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------
@@ -4021,10 +4202,12 @@ def _lint_bounds() -> None:
 
     g = torch.Generator(device="cuda").manual_seed(3)
     runs = []  # (D used, the call)
-    for dtype, dims in ((torch.bfloat16, (40, 64, 128, 256)), (torch.float32, (64, 256))):
+    for dtype, dims in ((torch.bfloat16, (40, 64, 128, 256, (192, 128))),
+                        (torch.float32, (64, 256))):
         for D in dims:
-            q, k, v, do = (torch.randn(2, 130, 2, D, device="cuda", dtype=dtype, generator=g)
-                           for _ in range(4))
+            D, Dv = D if isinstance(D, tuple) else (D, D)  # q, k at D; v, dO at Dv
+            q, k, v, do = (torch.randn(2, 130, 2, w, device="cuda", dtype=dtype, generator=g)
+                           for w in (D, D, Dv, Dv))
             scale = D ** -0.5
 
             def call(q=q, k=k, v=v, do=do, scale=scale):
@@ -4255,6 +4438,8 @@ def main() -> int:
     errs = phase_kernels()
     timing = phase_timing()
     phase_timing_wide()
+    phase_timing_narrow_v()
+    phase_rounds_moonlight()
     launches, params = phase_rounds()
     phase_small()
     phase_parity()

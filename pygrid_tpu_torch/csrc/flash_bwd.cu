@@ -76,7 +76,7 @@
 
 namespace pgt {
 
-// grid (ceil(Lk / TILE), B*H, n_chunks(D)): one block per (64-key tile,
+// grid (ceil(Lk / TILE), B*H, n_chunks(D, DC)): one block per (64-key tile,
 // b*h, DC-wide slice of the output columns), looping over the query tiles;
 // dK and dV stay in registers for the whole loop. Where D > DC, the
 // contractions stream K, V, Q and dO through shared memory chunk by chunk,
@@ -104,7 +104,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ dout
   const int h = bh - b * H;
   const int kt = blockIdx.x;
   const int k0 = kt * TILE;
-  const int n_c = n_chunks(D);
+  const int n_c = n_chunks(D, DC);
   const int z = blockIdx.z;
   const int d0 = z * DC;  // this block's output columns [d0, d0 + dw)
   const int dw = imin(DC, D - d0);
@@ -236,7 +236,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ dout
   }
 }
 
-// grid (ceil(Lq / TILE), B*H, n_chunks(D)): one block per (64-query tile,
+// grid (ceil(Lq / TILE), B*H, n_chunks(D, DC)): one block per (64-query tile,
 // b*h, DC-wide slice of the output columns), looping over the key tiles;
 // dQ stays in registers for the whole loop. Where D > DC, Q, dO, K and V
 // stream chunk by chunk, the block's own slice last.
@@ -262,7 +262,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ dout,
   const int h = bh - b * H;
   const int qt = blockIdx.x;
   const int q0 = qt * TILE;
-  const int n_c = n_chunks(D);
+  const int n_c = n_chunks(D, DC);
   const int z = blockIdx.z;
   const int d0 = z * DC;  // this block's output columns [d0, d0 + dw)
   const int dw = imin(DC, D - d0);
@@ -384,7 +384,7 @@ int launch_dkv(const void* q, const void* dout, const void* lse, const void* del
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Lk + TILE - 1) / TILE, B * H, n_chunks(D));
+  const dim3 grid((Lk + TILE - 1) / TILE, B * H, n_chunks(D, DC));
   flash_bwd_dkv_kernel<<<grid, THREADS, smem, stream>>>(
       (const float*)q, (const float*)dout, (const float*)lse, (const float*)delta,
       (const float*)k, (const float*)v, (float*)dk, (float*)dv, H, Lq, Lk, D, q_sb, q_sl, q_sh,
@@ -402,7 +402,7 @@ int launch_dq(const void* q, const void* dout, const void* lse, const void* delt
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Lq + TILE - 1) / TILE, B * H, n_chunks(D));
+  const dim3 grid((Lq + TILE - 1) / TILE, B * H, n_chunks(D, DC));
   flash_bwd_dq_kernel<<<grid, THREADS, smem, stream>>>(
       (const float*)q, (const float*)dout, (const float*)lse, (const float*)delta,
       (const float*)k, (const float*)v, (float*)dq, H, Lq, Lk, D, q_sb, q_sl, q_sh, o_sb, o_sl,
@@ -799,27 +799,43 @@ int launch_dq_tc(const void* q, const void* dout, const void* lse, const void* d
   return (int)cudaGetLastError();
 }
 
-// ---- bf16, D > 128: tensor cores with a D-slice grid axis -------------------
+// ---- bf16, D > 128: tensor cores, and a grid axis over the output slices ----
 //
-// The two kernels above for head dims DC < D <= MAX_D. The grid gains a
-// slice axis: each block owns DC = 128 output columns [d0, d0 + DC) and
-// keeps, for them, the f32 accumulators of a D = 128 block (dK and dV; dQ).
-// The contractions that need the full D (S = Q K^T and dP = dO V^T) stream
-// D in DC-wide chunks: the block's own operands stay in shared memory as
-// n_chunks(D) chunks, the other side's tiles pass through a double-buffered
-// ring one chunk per stage, and the chunks are taken in the order that puts
-// the block's own slice last, so the gradient product reads that slice from
-// the ring slot where it already lies. S and dP are recomputed in every
-// slice (2x the QK^T and dO V^T work at D = 256). The streamed tiles are
-// narrower than at D = 128 (16 queries for dK/dV, 32 keys for dQ), which
-// keeps S and dP at 16 and 32 registers a thread beside the accumulators:
-// ptxas gives the kernels 216 and 177 registers and no spills (254 and 255
-// at D = 128). Shared memory at D = 512: 153 KB (dK/dV) and 170 KB (dQ),
-// one block an SM.
+// The two kernels above for a query/key width D past DC = 128 (up to MAX_D)
+// and a value width Dv of its own, templated on CW, the width of the Q and K
+// chunks and of a block's dK or dQ slice. Each block owns one slice z of its
+// outputs: dK's columns [z CW, z CW + CW) and dV's [z CW, z CW + DC) (dQ's
+// [z CW, z CW + CW)), with their f32 accumulators in registers. The
+// contractions that need the full widths (S = Q K^T over D, dP = dO V^T over
+// Dv) stream chunk by chunk: the block's own operands stay in shared memory
+// as n = ceil(D / CW) chunks (Q and K CW wide, dO and V DC wide), the other
+// side's tiles pass through a double-buffered ring one chunk per stage, and
+// the chunks are taken in the order that puts the block's own slice last, so
+// the gradient products read that slice from the ring slot where it already
+// lies. On the narrow-V path the contractions run as many k-steps as the
+// chunk's real widths need (S and dP together over D_v's, then S alone;
+// tc::k_loop, fully unrolled for a whole chunk), so none runs over columns
+// of zeros; the slice path, where D = Dv, runs every chunk at its 128
+// columns in loops of its own, one pitch for all four tiles (the general
+// form, at the same registers, ran its dK/dV kernel 2 % slower). The streamed
+// tiles are narrower than at D = 128 (16 queries for dK/dV, 32 keys for dQ),
+// which keeps S and dP at 16 and 32 registers a thread beside the
+// accumulators. Dv is the kernels' last parameter, so that the slice path
+// loads the others as a one-width signature does. Two instantiations:
+// - CW = DC (D = Dv > 128): n slices, each recomputing S and dP (2x the
+//   QK^T and dO V^T work at D = 256). ptxas gives the kernels 216 and 177
+//   registers and no spills (254 and 255 at D = 128). Shared memory at
+//   D = 512: 153 KB (dK/dV) and 170 KB (dQ), one block an SM.
+// - CW = NV_DQK = 192, the narrow-V path (Dv <= 128 < D <= 192, multi-head
+//   latent attention's 192/128): one slice and one chunk, so S and dP are
+//   formed once per tile pair and each block owns dK at D and dV at Dv (160
+//   f32 accumulators a thread), or dQ at D (96). 63 KB (dK/dV) and 84 KB
+//   (dQ) of shared memory; ptxas gives both 255 registers and no spills.
 
 constexpr int TCW_BQ = 16;  // queries per ring stage of the wide dK/dV kernel
 constexpr int TCW_BK = 32;  // keys per ring stage of the wide dQ kernel
 
+template <int CW>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_bwd_dkv_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ dout,
@@ -829,24 +845,27 @@ flash_bwd_dkv_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
                              __nv_bfloat16* __restrict__ dv, int H, int Lq, int Lk, int D,
                              int q_sb, int q_sl, int q_sh, int o_sb, int o_sl, int o_sh,
                              int k_sb, int k_sl, int k_sh, int v_sb, int v_sl, int v_sh,
-                             float scale, int causal) {
+                             float scale, int causal, int Dv) {
   using namespace tc;
-  constexpr int P = DC + PAD;
+  constexpr int PQ = CW + PAD;  // row pitch of the Q and K tiles (and staged dK)
+  constexpr int PV = DC + PAD;  // row pitch of the dO and V tiles (and staged dV)
   constexpr int BQ = TCW_BQ;
+  constexpr int SLOT = BQ * (PQ + PV);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n_c = n_chunks(D);
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [n_c][BK][P], then dK
-  __nv_bfloat16* sV = sK + n_c * TC_BK * P;                          // [n_c][BK][P], then dV
-  __nv_bfloat16* sR = sV + n_c * TC_BK * P;  // ring [2][Q chunk, dO chunk][BQ][P]
-  float* sLse = reinterpret_cast<float*>(sR + 2 * 2 * BQ * P);  // [2][BQ]
-  float* sDelta = sLse + 2 * BQ;                                 // [2][BQ]
+  const int n_c = n_chunks(D, CW);
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [n_c][BK][PQ], then dK
+  __nv_bfloat16* sV = sK + n_c * TC_BK * PQ;                         // [n_c][BK][PV], then dV
+  __nv_bfloat16* sR = sV + n_c * TC_BK * PV;  // ring [2][Q chunk [BQ][PQ], dO chunk [BQ][PV]]
+  float* sLse = reinterpret_cast<float*>(sR + 2 * SLOT);  // [2][BQ]
+  float* sDelta = sLse + 2 * BQ;                           // [2][BQ]
 
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh - b * H;
   const int k0 = blockIdx.y * TC_BK;
   const int z = blockIdx.z;
-  const int d0 = z * DC;
+  const int d0 = z * CW;  // this block's first dK and dV column (0 on the narrow-V path)
+  if (CW == DC) Dv = D;   // the slice path: one width
   const __nv_bfloat16* qb = q + (long long)b * q_sb + (long long)h * q_sh;
   const __nv_bfloat16* ob = dout + (long long)b * o_sb + (long long)h * o_sh;
   const __nv_bfloat16* kb = k + (long long)b * k_sb + (long long)h * k_sh;
@@ -869,11 +888,11 @@ flash_bwd_dkv_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
   auto issue = [&](int st) {
     const int i = st % n_c;
     const int q0 = (q_first + st / n_c) * BQ;
-    const int c0 = ((z + 1 + i) % n_c) * DC;
+    const int c = (z + 1 + i) % n_c;
     const int buf = st & 1;
-    __nv_bfloat16* dst = sR + buf * 2 * BQ * P;
-    load_tile_async<BQ, DC, TC_THREADS>(dst, qb + c0, q_sl, q0, Lq, D - c0);
-    load_tile_async<BQ, DC, TC_THREADS>(dst + BQ * P, ob + c0, o_sl, q0, Lq, D - c0);
+    __nv_bfloat16* dst = sR + buf * SLOT;
+    load_tile_async<BQ, CW, TC_THREADS>(dst, qb + c * CW, q_sl, q0, Lq, D - c * CW);
+    load_tile_async<BQ, DC, TC_THREADS>(dst + BQ * PQ, ob + c * DC, o_sl, q0, Lq, Dv - c * DC);
     if (i == n_c - 1) {
       for (int r = threadIdx.x; r < 2 * BQ; r += TC_THREADS) {
         const int rr = r % BQ;
@@ -884,20 +903,23 @@ flash_bwd_dkv_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
     }
   };
   for (int c = 0; c < n_c; ++c) {
-    load_tile_async<TC_BK, DC, TC_THREADS>(sK + c * TC_BK * P, kb + c * DC, k_sl, k0, Lk,
-                                           D - c * DC);
-    load_tile_async<TC_BK, DC, TC_THREADS>(sV + c * TC_BK * P, vb + c * DC, v_sl, k0, Lk,
-                                           D - c * DC);
+    load_tile_async<TC_BK, CW, TC_THREADS>(sK + c * TC_BK * PQ, kb + c * CW, k_sl, k0, Lk,
+                                           D - c * CW);
+    load_tile_async<TC_BK, DC, TC_THREADS>(sV + c * TC_BK * PV, vb + c * DC, v_sl, k0, Lk,
+                                           Dv - c * DC);
   }
   if (n_st > 0) issue(0);
   cp_async_commit();
 
   const float sl2 = scale * 1.4426950408889634f;
-  float acc_dk[DC / 8][4], acc_dv[DC / 8][4];
+  float acc_dk[CW / 8][4], acc_dv[DC / 8][4];
 #pragma unroll
-  for (int n = 0; n < DC / 8; ++n)
+  for (int n = 0; n < CW / 8; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc_dk[n][e] = acc_dv[n][e] = 0.f;
+    for (int e = 0; e < 4; ++e) {
+      acc_dk[n][e] = 0.f;
+      if (n < DC / 8) acc_dv[n][e] = 0.f;
+    }
   float s[BQ / 8][4], dp[BQ / 8][4];
 
   for (int st = 0; st < n_st; ++st) {
@@ -912,10 +934,10 @@ flash_bwd_dkv_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();  // stage st (and at st = 0, K and V) has landed
-    const __nv_bfloat16* Qt = sR + buf * 2 * BQ * P;
-    const __nv_bfloat16* Ot = Qt + BQ * P;
-    const __nv_bfloat16* Kc = sK + c * TC_BK * P;
-    const __nv_bfloat16* Vc = sV + c * TC_BK * P;
+    const __nv_bfloat16* Qt = sR + buf * SLOT;
+    const __nv_bfloat16* Ot = Qt + BQ * PQ;
+    const __nv_bfloat16* Kc = sK + c * TC_BK * PQ;
+    const __nv_bfloat16* Vc = sV + c * TC_BK * PV;
 
     if (i == 0) {
 #pragma unroll
@@ -923,24 +945,58 @@ flash_bwd_dkv_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
     }
-    // S^T += K_c Q_c^T and dP^T += V_c dO_c^T
+    if constexpr (CW == DC) {  // the slice path: S^T += K_c Q_c^T and dP^T += V_c dO_c^T
 #pragma unroll
-    for (int ks = 0; ks < DC / 16; ++ks) {
-      uint32_t ka[4], va[4];
-      ldmatrix_x4(ka, Kc + (wrow + (lane & 15)) * P + ks * 16 + (lane >> 4) * 8);
-      ldmatrix_x4(va, Vc + (wrow + (lane & 15)) * P + ks * 16 + (lane >> 4) * 8);
+      for (int ks = 0; ks < DC / 16; ++ks) {
+        uint32_t ka[4], va[4];
+        ldmatrix_x4(ka, Kc + (wrow + (lane & 15)) * PQ + ks * 16 + (lane >> 4) * 8);
+        ldmatrix_x4(va, Vc + (wrow + (lane & 15)) * PQ + ks * 16 + (lane >> 4) * 8);
 #pragma unroll
-      for (int np = 0; np < BQ / 16; ++np) {
-        const int off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * P + ks * 16 +
-                        ((lane >> 3) & 1) * 8;
-        uint32_t qf[4], of[4];
-        ldmatrix_x4(qf, Qt + off);
-        ldmatrix_x4(of, Ot + off);
-        mma_bf16(s[2 * np], ka, qf[0], qf[1]);
-        mma_bf16(s[2 * np + 1], ka, qf[2], qf[3]);
-        mma_bf16(dp[2 * np], va, of[0], of[1]);
-        mma_bf16(dp[2 * np + 1], va, of[2], of[3]);
+        for (int np = 0; np < BQ / 16; ++np) {
+          const int off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * PQ + ks * 16 +
+                          ((lane >> 3) & 1) * 8;
+          uint32_t qf[4], of[4];
+          ldmatrix_x4(qf, Qt + off);
+          ldmatrix_x4(of, Ot + off);
+          mma_bf16(s[2 * np], ka, qf[0], qf[1]);
+          mma_bf16(s[2 * np + 1], ka, qf[2], qf[3]);
+          mma_bf16(dp[2 * np], va, of[0], of[1]);
+          mma_bf16(dp[2 * np + 1], va, of[2], of[3]);
+        }
       }
+    } else {
+      // the narrow-V path, as many k-steps as the chunk's real widths need:
+      // S^T += K_c Q_c^T and dP^T += V_c dO_c^T together over D_v's, then
+      // S^T alone over the rest of D_qk
+      const int nq = k_steps(D - c * CW, CW), nv = k_steps(Dv - c * DC, DC);
+      const int a_row = wrow + (lane & 15), a_col = (lane >> 4) * 8;  // A: this warp's keys
+      const int b_row = (lane & 7) + ((lane >> 4) << 3), b_col = ((lane >> 3) & 1) * 8;
+      k_loop<DC / 16>(0, nv, [&](int ks) {
+        uint32_t ka[4], va[4];
+        ldmatrix_x4(ka, Kc + a_row * PQ + ks * 16 + a_col);
+        ldmatrix_x4(va, Vc + a_row * PV + ks * 16 + a_col);
+#pragma unroll
+        for (int np = 0; np < BQ / 16; ++np) {
+          uint32_t qf[4], of[4];
+          ldmatrix_x4(qf, Qt + (np * 16 + b_row) * PQ + ks * 16 + b_col);
+          ldmatrix_x4(of, Ot + (np * 16 + b_row) * PV + ks * 16 + b_col);
+          mma_bf16(s[2 * np], ka, qf[0], qf[1]);
+          mma_bf16(s[2 * np + 1], ka, qf[2], qf[3]);
+          mma_bf16(dp[2 * np], va, of[0], of[1]);
+          mma_bf16(dp[2 * np + 1], va, of[2], of[3]);
+        }
+      });
+      k_loop<(CW - DC) / 16, CW / 16>(nv, nq, [&](int ks) {
+        uint32_t ka[4];
+        ldmatrix_x4(ka, Kc + a_row * PQ + ks * 16 + a_col);
+#pragma unroll
+        for (int np = 0; np < BQ / 16; ++np) {
+          uint32_t qf[4];
+          ldmatrix_x4(qf, Qt + (np * 16 + b_row) * PQ + ks * 16 + b_col);
+          mma_bf16(s[2 * np], ka, qf[0], qf[1]);
+          mma_bf16(s[2 * np + 1], ka, qf[2], qf[3]);
+        }
+      });
     }
 
     if (i == n_c - 1) {  // S^T and dP^T are complete; the slot holds slice z
@@ -965,6 +1021,7 @@ flash_bwd_dkv_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
       }
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk) {
+        const int row = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8);
         const uint32_t pa[4] = {
             pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
@@ -973,15 +1030,30 @@ flash_bwd_dkv_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
             pack_bf16(dp[2 * kk][0], dp[2 * kk][1]), pack_bf16(dp[2 * kk][2], dp[2 * kk][3]),
             pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
             pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
+        // dV += bf16(P^T) dO_z and dK += bf16(dS^T) Q_z, together over dV's
+        // columns, then dK alone over the rest of D_qk (columns past D_v and
+        // D_qk: zeros, never written)
 #pragma unroll
         for (int np = 0; np < DC / 16; ++np) {
-          const int off = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P + np * 16 +
-                          (lane >> 4) * 8;
           uint32_t of[4], qf[4];
-          ldmatrix_x4_trans(of, Ot + off);
-          ldmatrix_x4_trans(qf, Qt + off);
+          if constexpr (CW == DC) {  // the slice path: one pitch, one offset
+            const int off = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * PQ + np * 16 +
+                            (lane >> 4) * 8;
+            ldmatrix_x4_trans(of, Ot + off);
+            ldmatrix_x4_trans(qf, Qt + off);
+          } else {
+            ldmatrix_x4_trans(of, Ot + row * PV + np * 16 + (lane >> 4) * 8);
+            ldmatrix_x4_trans(qf, Qt + row * PQ + np * 16 + (lane >> 4) * 8);
+          }
           mma_bf16(acc_dv[2 * np], pa, of[0], of[1]);
           mma_bf16(acc_dv[2 * np + 1], pa, of[2], of[3]);
+          mma_bf16(acc_dk[2 * np], da, qf[0], qf[1]);
+          mma_bf16(acc_dk[2 * np + 1], da, qf[2], qf[3]);
+        }
+#pragma unroll
+        for (int np = DC / 16; np < CW / 16; ++np) {
+          uint32_t qf[4];
+          ldmatrix_x4_trans(qf, Qt + row * PQ + np * 16 + (lane >> 4) * 8);
           mma_bf16(acc_dk[2 * np], da, qf[0], qf[1]);
           mma_bf16(acc_dk[2 * np + 1], da, qf[2], qf[3]);
         }
@@ -994,43 +1066,47 @@ flash_bwd_dkv_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
   cp_async_wait<0>();
   __syncthreads();
 #pragma unroll
-  for (int n = 0; n < DC / 8; ++n) {
+  for (int n = 0; n < CW / 8; ++n) {
     const int col = n * 8 + 2 * t;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int row = wrow + g + 8 * hh;
-      *reinterpret_cast<uint32_t*>(sK + row * P + col) =
+      *reinterpret_cast<uint32_t*>(sK + row * PQ + col) =
           pack_bf16(acc_dk[n][2 * hh], acc_dk[n][2 * hh + 1]);
-      *reinterpret_cast<uint32_t*>(sV + row * P + col) =
-          pack_bf16(acc_dv[n][2 * hh], acc_dv[n][2 * hh + 1]);
+      if (n < DC / 8)
+        *reinterpret_cast<uint32_t*>(sV + row * PV + col) =
+            pack_bf16(acc_dv[n][2 * hh], acc_dv[n][2 * hh + 1]);
     }
   }
   __syncthreads();
-  const long long out0 = ((long long)b * Lk * H + h) * D + d0;
-  store_tile<TC_BK, DC, TC_THREADS>(dk + out0, (long long)H * D, sK, k0, Lk, D - d0);
-  store_tile<TC_BK, DC, TC_THREADS>(dv + out0, (long long)H * D, sV, k0, Lk, D - d0);
+  store_tile<TC_BK, CW, TC_THREADS>(dk + ((long long)b * Lk * H + h) * D + d0, (long long)H * D,
+                                    sK, k0, Lk, D - d0);
+  store_tile<TC_BK, DC, TC_THREADS>(dv + ((long long)b * Lk * H + h) * Dv + d0,
+                                    (long long)H * Dv, sV, k0, Lk, Dv - d0);
 }
 
+template <int CW>
 int launch_dkv_tc_wide(const void* q, const void* dout, const void* lse, const void* delta,
                        const void* k, const void* v, void* dk, void* dv, int B, int H, int Lq,
-                       int Lk, int D, int q_sb, int q_sl, int q_sh, int o_sb, int o_sl, int o_sh,
-                       int k_sb, int k_sl, int k_sh, int v_sb, int v_sl, int v_sh, float scale,
-                       int causal, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(__nv_bfloat16) * (2 * n_chunks(D) * TC_BK + 4 * TCW_BQ) * (DC + tc::PAD) +
-      sizeof(float) * 4 * TCW_BQ;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tc_wide_kernel,
+                       int Lk, int D, int Dv, int q_sb, int q_sl, int q_sh, int o_sb, int o_sl,
+                       int o_sh, int k_sb, int k_sl, int k_sh, int v_sb, int v_sl, int v_sh,
+                       float scale, int causal, cudaStream_t stream) {
+  const size_t smem = sizeof(__nv_bfloat16) * (n_chunks(D, CW) * TC_BK + 2 * TCW_BQ) *
+                          (CW + tc::PAD + DC + tc::PAD) +
+                      sizeof(float) * 4 * TCW_BQ;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tc_wide_kernel<CW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (Lk + TC_BK - 1) / TC_BK, n_chunks(D));
-  flash_bwd_dkv_tc_wide_kernel<<<grid, TC_THREADS, smem, stream>>>(
+  const dim3 grid(B * H, (Lk + TC_BK - 1) / TC_BK, n_chunks(D, CW));
+  flash_bwd_dkv_tc_wide_kernel<CW><<<grid, TC_THREADS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)dout, (const float*)lse,
       (const float*)delta, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
       (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, H, Lq, Lk, D, q_sb, q_sl, q_sh, o_sb, o_sl, o_sh,
-      k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal);
+      k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal, Dv);
   return (int)cudaGetLastError();
 }
 
+template <int CW>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_bwd_dq_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ dout,
@@ -1039,15 +1115,17 @@ flash_bwd_dq_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
                             const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ dq,
                             int H, int Lq, int Lk, int D, int q_sb, int q_sl, int q_sh,
                             int o_sb, int o_sl, int o_sh, int k_sb, int k_sl, int k_sh,
-                            int v_sb, int v_sl, int v_sh, float scale, int causal) {
+                            int v_sb, int v_sl, int v_sh, float scale, int causal, int Dv) {
   using namespace tc;
-  constexpr int P = DC + PAD;
+  constexpr int PQ = CW + PAD;  // row pitch of the Q and K tiles (and staged dQ)
+  constexpr int PV = DC + PAD;  // row pitch of the dO and V tiles
   constexpr int BQ = TC_DQ_BQ, BK = TCW_BK;
+  constexpr int SLOT = BK * (PQ + PV);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n_c = n_chunks(D);
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [n_c][BQ][P], then dQ
-  __nv_bfloat16* sO = sQ + n_c * BQ * P;                             // [n_c][BQ][P] dO
-  __nv_bfloat16* sR = sO + n_c * BQ * P;  // ring [2][K chunk, V chunk][BK][P]
+  const int n_c = n_chunks(D, CW);
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [n_c][BQ][PQ], then dQ
+  __nv_bfloat16* sO = sQ + n_c * BQ * PQ;                            // [n_c][BQ][PV] dO
+  __nv_bfloat16* sR = sO + n_c * BQ * PV;  // ring [2][K chunk [BK][PQ], V chunk [BK][PV]]
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -1055,7 +1133,8 @@ flash_bwd_dq_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
   const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
   const int q0 = qt * BQ;
   const int z = blockIdx.z;
-  const int d0 = z * DC;
+  const int d0 = z * CW;
+  if (CW == DC) Dv = D;  // the slice path: one width
   const __nv_bfloat16* qb = q + (long long)b * q_sb + (long long)h * q_sh;
   const __nv_bfloat16* ob = dout + (long long)b * o_sb + (long long)h * o_sh;
   const __nv_bfloat16* kb = k + (long long)b * k_sb + (long long)h * k_sh;
@@ -1075,14 +1154,15 @@ flash_bwd_dq_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
   // is chunk (z + 1 + i) % n_c
   auto issue = [&](int st) {
     const int k0 = (st / n_c) * BK;
-    const int c0 = ((z + 1 + st % n_c) % n_c) * DC;
-    __nv_bfloat16* dst = sR + (st & 1) * 2 * BK * P;
-    load_tile_async<BK, DC, TC_THREADS>(dst, kb + c0, k_sl, k0, Lk, D - c0);
-    load_tile_async<BK, DC, TC_THREADS>(dst + BK * P, vb + c0, v_sl, k0, Lk, D - c0);
+    const int c = (z + 1 + st % n_c) % n_c;
+    __nv_bfloat16* dst = sR + (st & 1) * SLOT;
+    load_tile_async<BK, CW, TC_THREADS>(dst, kb + c * CW, k_sl, k0, Lk, D - c * CW);
+    load_tile_async<BK, DC, TC_THREADS>(dst + BK * PQ, vb + c * DC, v_sl, k0, Lk, Dv - c * DC);
   };
   for (int c = 0; c < n_c; ++c) {
-    load_tile_async<BQ, DC, TC_THREADS>(sQ + c * BQ * P, qb + c * DC, q_sl, q0, Lq, D - c * DC);
-    load_tile_async<BQ, DC, TC_THREADS>(sO + c * BQ * P, ob + c * DC, o_sl, q0, Lq, D - c * DC);
+    load_tile_async<BQ, CW, TC_THREADS>(sQ + c * BQ * PQ, qb + c * CW, q_sl, q0, Lq, D - c * CW);
+    load_tile_async<BQ, DC, TC_THREADS>(sO + c * BQ * PV, ob + c * DC, o_sl, q0, Lq,
+                                        Dv - c * DC);
   }
   issue(0);
   cp_async_commit();
@@ -1097,9 +1177,9 @@ flash_bwd_dq_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
     dlt[hh] = in ? delta[(long long)bh * Lq + qpos] : 0.f;
   }
 
-  float acc[DC / 8][4];
+  float acc[CW / 8][4];
 #pragma unroll
-  for (int n = 0; n < DC / 8; ++n)
+  for (int n = 0; n < CW / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   float s[BK / 8][4], dp[BK / 8][4];
@@ -1115,10 +1195,10 @@ flash_bwd_dq_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();  // stage st (and at st = 0, Q and dO) has landed
-    const __nv_bfloat16* Kt = sR + (st & 1) * 2 * BK * P;
-    const __nv_bfloat16* Vt = Kt + BK * P;
-    const __nv_bfloat16* Qc = sQ + c * BQ * P;
-    const __nv_bfloat16* Oc = sO + c * BQ * P;
+    const __nv_bfloat16* Kt = sR + (st & 1) * SLOT;
+    const __nv_bfloat16* Vt = Kt + BK * PQ;
+    const __nv_bfloat16* Qc = sQ + c * BQ * PQ;
+    const __nv_bfloat16* Oc = sO + c * BQ * PV;
 
     if (i == 0) {
 #pragma unroll
@@ -1126,24 +1206,58 @@ flash_bwd_dq_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
     }
-    // S += Q_c K_c^T and dP += dO_c V_c^T
+    if constexpr (CW == DC) {  // the slice path: S += Q_c K_c^T and dP += dO_c V_c^T
 #pragma unroll
-    for (int ks = 0; ks < DC / 16; ++ks) {
-      uint32_t qf[4], of[4];
-      ldmatrix_x4(qf, Qc + (wrow + (lane & 15)) * P + ks * 16 + (lane >> 4) * 8);
-      ldmatrix_x4(of, Oc + (wrow + (lane & 15)) * P + ks * 16 + (lane >> 4) * 8);
+      for (int ks = 0; ks < DC / 16; ++ks) {
+        uint32_t qf[4], of[4];
+        ldmatrix_x4(qf, Qc + (wrow + (lane & 15)) * PQ + ks * 16 + (lane >> 4) * 8);
+        ldmatrix_x4(of, Oc + (wrow + (lane & 15)) * PQ + ks * 16 + (lane >> 4) * 8);
 #pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        const int off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * P + ks * 16 +
-                        ((lane >> 3) & 1) * 8;
-        uint32_t kf[4], vf[4];
-        ldmatrix_x4(kf, Kt + off);
-        ldmatrix_x4(vf, Vt + off);
-        mma_bf16(s[2 * np], qf, kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qf, kf[2], kf[3]);
-        mma_bf16(dp[2 * np], of, vf[0], vf[1]);
-        mma_bf16(dp[2 * np + 1], of, vf[2], vf[3]);
+        for (int np = 0; np < BK / 16; ++np) {
+          const int off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * PQ + ks * 16 +
+                          ((lane >> 3) & 1) * 8;
+          uint32_t kf[4], vf[4];
+          ldmatrix_x4(kf, Kt + off);
+          ldmatrix_x4(vf, Vt + off);
+          mma_bf16(s[2 * np], qf, kf[0], kf[1]);
+          mma_bf16(s[2 * np + 1], qf, kf[2], kf[3]);
+          mma_bf16(dp[2 * np], of, vf[0], vf[1]);
+          mma_bf16(dp[2 * np + 1], of, vf[2], vf[3]);
+        }
       }
+    } else {
+      // the narrow-V path, as many k-steps as the chunk's real widths need:
+      // S += Q_c K_c^T and dP += dO_c V_c^T together over D_v's, then S
+      // alone over the rest of D_qk
+      const int nq = k_steps(D - c * CW, CW), nv = k_steps(Dv - c * DC, DC);
+      const int a_row = wrow + (lane & 15), a_col = (lane >> 4) * 8;
+      const int b_row = (lane & 7) + ((lane >> 4) << 3), b_col = ((lane >> 3) & 1) * 8;
+      k_loop<DC / 16>(0, nv, [&](int ks) {
+        uint32_t qf[4], of[4];
+        ldmatrix_x4(qf, Qc + a_row * PQ + ks * 16 + a_col);
+        ldmatrix_x4(of, Oc + a_row * PV + ks * 16 + a_col);
+#pragma unroll
+        for (int np = 0; np < BK / 16; ++np) {
+          uint32_t kf[4], vf[4];
+          ldmatrix_x4(kf, Kt + (np * 16 + b_row) * PQ + ks * 16 + b_col);
+          ldmatrix_x4(vf, Vt + (np * 16 + b_row) * PV + ks * 16 + b_col);
+          mma_bf16(s[2 * np], qf, kf[0], kf[1]);
+          mma_bf16(s[2 * np + 1], qf, kf[2], kf[3]);
+          mma_bf16(dp[2 * np], of, vf[0], vf[1]);
+          mma_bf16(dp[2 * np + 1], of, vf[2], vf[3]);
+        }
+      });
+      k_loop<(CW - DC) / 16, CW / 16>(nv, nq, [&](int ks) {
+        uint32_t qf[4];
+        ldmatrix_x4(qf, Qc + a_row * PQ + ks * 16 + a_col);
+#pragma unroll
+        for (int np = 0; np < BK / 16; ++np) {
+          uint32_t kf[4];
+          ldmatrix_x4(kf, Kt + (np * 16 + b_row) * PQ + ks * 16 + b_col);
+          mma_bf16(s[2 * np], qf, kf[0], kf[1]);
+          mma_bf16(s[2 * np + 1], qf, kf[2], kf[3]);
+        }
+      });
     }
 
     if (i == n_c - 1) {  // S and dP are complete; the slot holds K's slice z
@@ -1170,9 +1284,9 @@ flash_bwd_dq_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
             pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]),
             pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3])};
 #pragma unroll
-        for (int np = 0; np < DC / 16; ++np) {
+        for (int np = 0; np < CW / 16; ++np) {  // columns past D_qk: zeros, never written
           uint32_t kf[4];
-          ldmatrix_x4_trans(kf, Kt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
+          ldmatrix_x4_trans(kf, Kt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * PQ +
                                     np * 16 + (lane >> 4) * 8);
           mma_bf16(acc[2 * np], da, kf[0], kf[1]);
           mma_bf16(acc[2 * np + 1], da, kf[2], kf[3]);
@@ -1184,64 +1298,68 @@ flash_bwd_dq_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
 
   // stage dQ as bf16 over Q's first chunk, store it coalesced
 #pragma unroll
-  for (int n = 0; n < DC / 8; ++n) {
+  for (int n = 0; n < CW / 8; ++n) {
     const int col = n * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(sQ + (wrow + g) * P + col) = pack_bf16(acc[n][0], acc[n][1]);
-    *reinterpret_cast<uint32_t*>(sQ + (wrow + g + 8) * P + col) =
+    *reinterpret_cast<uint32_t*>(sQ + (wrow + g) * PQ + col) = pack_bf16(acc[n][0], acc[n][1]);
+    *reinterpret_cast<uint32_t*>(sQ + (wrow + g + 8) * PQ + col) =
         pack_bf16(acc[n][2], acc[n][3]);
   }
   __syncthreads();
-  store_tile<BQ, DC, TC_THREADS>(dq + ((long long)b * Lq * H + h) * D + d0, (long long)H * D,
+  store_tile<BQ, CW, TC_THREADS>(dq + ((long long)b * Lq * H + h) * D + d0, (long long)H * D,
                                  sQ, q0, Lq, D - d0);
 }
 
+template <int CW>
 int launch_dq_tc_wide(const void* q, const void* dout, const void* lse, const void* delta,
                       const void* k, const void* v, void* dq, int B, int H, int Lq, int Lk, int D,
-                      int q_sb, int q_sl, int q_sh, int o_sb, int o_sl, int o_sh, int k_sb,
-                      int k_sl, int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal,
-                      cudaStream_t stream) {
-  const size_t smem =
-      sizeof(__nv_bfloat16) * (2 * n_chunks(D) * TC_DQ_BQ + 4 * TCW_BK) * (DC + tc::PAD);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tc_wide_kernel,
+                      int Dv, int q_sb, int q_sl, int q_sh, int o_sb, int o_sl, int o_sh,
+                      int k_sb, int k_sl, int k_sh, int v_sb, int v_sl, int v_sh, float scale,
+                      int causal, cudaStream_t stream) {
+  const size_t smem = sizeof(__nv_bfloat16) * (n_chunks(D, CW) * TC_DQ_BQ + 2 * TCW_BK) *
+                      (CW + tc::PAD + DC + tc::PAD);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tc_wide_kernel<CW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (Lq + TC_DQ_BQ - 1) / TC_DQ_BQ, n_chunks(D));
-  flash_bwd_dq_tc_wide_kernel<<<grid, TC_THREADS, smem, stream>>>(
+  const dim3 grid(B * H, (Lq + TC_DQ_BQ - 1) / TC_DQ_BQ, n_chunks(D, CW));
+  flash_bwd_dq_tc_wide_kernel<CW><<<grid, TC_THREADS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)dout, (const float*)lse,
       (const float*)delta, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (__nv_bfloat16*)dq,
       H, Lq, Lk, D, q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale,
-      causal);
+      causal, Dv);
   return (int)cudaGetLastError();
-}
-
-inline bool bad_shape(int B, int H, int Lq, int Lk, int D) {
-  return D < 1 || D > MAX_D || Lq < 1 || Lk < 1 || B * H < 1 || B * H > 65535;
 }
 
 }  // namespace pgt
 
-// dk, dv: contiguous [B, Lk, H, D] in the input dtype, 1 <= D <= MAX_D.
-// lse, delta: contiguous f32 [B*H, Lq]. bf16 runs on the tensor cores and needs D % 8 == 0, strides
-// that are multiples of 8 elements and 16-byte-aligned q, dO, k, v (the
-// wrapper makes a padded copy where a view is not so). Returns the
-// cudaError_t of the launch (0 = launched).
+// dk: contiguous [B, Lk, H, D] and dv [B, Lk, H, Dv] in the input dtype;
+// D is the query/key width, 1 <= D <= MAX_D, and Dv the value width: Dv ==
+// D, or in bf16 the narrow-V shape Dv <= DC < D <= NV_DQK. lse, delta:
+// contiguous f32 [B*H, Lq]. bf16 runs on the tensor cores and needs D and
+// Dv % 8 == 0, strides that are multiples of 8 elements and 16-byte-aligned
+// q, dO, k, v (the wrapper makes a padded copy where a view is not so).
+// Returns the cudaError_t of the launch (0 = launched).
 extern "C" int pgt_flash_bwd_dkv(const void* q, const void* dout, const void* lse,
                                  const void* delta, const void* k, const void* v, void* dk,
-                                 void* dv, int B, int H, int Lq, int Lk, int D, int q_sb,
+                                 void* dv, int B, int H, int Lq, int Lk, int D, int Dv, int q_sb,
                                  int q_sl, int q_sh, int o_sb, int o_sl, int o_sh, int k_sb,
                                  int k_sl, int k_sh, int v_sb, int v_sl, int v_sh, float scale,
                                  int causal, int is_bf16, void* stream) {
-  if (pgt::bad_shape(B, H, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
+  if (pgt::bad_shape(B, H, Lq, Lk, D, Dv, is_bf16)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
     using pgt::tc::layout_ok;
-    if (!layout_ok(q, D, q_sb, q_sl, q_sh) || !layout_ok(dout, D, o_sb, o_sl, o_sh) ||
-        !layout_ok(k, D, k_sb, k_sl, k_sh) || !layout_ok(v, D, v_sb, v_sl, v_sh))
+    if (!layout_ok(q, D, q_sb, q_sl, q_sh) || !layout_ok(dout, Dv, o_sb, o_sl, o_sh) ||
+        !layout_ok(k, D, k_sb, k_sl, k_sh) || !layout_ok(v, Dv, v_sb, v_sl, v_sh))
       return (int)cudaErrorInvalidValue;
+    if (Dv != D)
+      return pgt::launch_dkv_tc_wide<pgt::NV_DQK>(q, dout, lse, delta, k, v, dk, dv, B, H, Lq,
+                                                  Lk, D, Dv, q_sb, q_sl, q_sh, o_sb, o_sl, o_sh,
+                                                  k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale,
+                                                  causal, s);
     if (D > pgt::DC)
-      return pgt::launch_dkv_tc_wide(q, dout, lse, delta, k, v, dk, dv, B, H, Lq, Lk, D, q_sb,
-                                     q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb, v_sl,
-                                     v_sh, scale, causal, s);
+      return pgt::launch_dkv_tc_wide<pgt::DC>(q, dout, lse, delta, k, v, dk, dv, B, H, Lq, Lk,
+                                              D, D, q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb,
+                                              k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal, s);
     switch (pgt::tc::padded_d(D)) {
       case 48:
         return pgt::launch_dkv_tc<48>(q, dout, lse, delta, k, v, dk, dv, B, H, Lq, Lk, D, q_sb,
@@ -1262,25 +1380,29 @@ extern "C" int pgt_flash_bwd_dkv(const void* q, const void* dout, const void* ls
                                 scale, causal, s);
 }
 
-// dq: contiguous [B, Lq, H, D] in the input dtype. bf16 runs on the tensor
-// cores with the layout preconditions of pgt_flash_bwd_dkv.
+// dq: contiguous [B, Lq, H, D] in the input dtype. The shapes and the bf16
+// layout preconditions are pgt_flash_bwd_dkv's.
 extern "C" int pgt_flash_bwd_dq(const void* q, const void* dout, const void* lse,
                                 const void* delta, const void* k, const void* v, void* dq, int B,
-                                int H, int Lq, int Lk, int D, int q_sb, int q_sl, int q_sh,
-                                int o_sb, int o_sl, int o_sh, int k_sb, int k_sl, int k_sh,
-                                int v_sb, int v_sl, int v_sh, float scale, int causal,
+                                int H, int Lq, int Lk, int D, int Dv, int q_sb, int q_sl,
+                                int q_sh, int o_sb, int o_sl, int o_sh, int k_sb, int k_sl,
+                                int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal,
                                 int is_bf16, void* stream) {
-  if (pgt::bad_shape(B, H, Lq, Lk, D)) return (int)cudaErrorInvalidValue;
+  if (pgt::bad_shape(B, H, Lq, Lk, D, Dv, is_bf16)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
     using pgt::tc::layout_ok;
-    if (!layout_ok(q, D, q_sb, q_sl, q_sh) || !layout_ok(dout, D, o_sb, o_sl, o_sh) ||
-        !layout_ok(k, D, k_sb, k_sl, k_sh) || !layout_ok(v, D, v_sb, v_sl, v_sh))
+    if (!layout_ok(q, D, q_sb, q_sl, q_sh) || !layout_ok(dout, Dv, o_sb, o_sl, o_sh) ||
+        !layout_ok(k, D, k_sb, k_sl, k_sh) || !layout_ok(v, Dv, v_sb, v_sl, v_sh))
       return (int)cudaErrorInvalidValue;
+    if (Dv != D)
+      return pgt::launch_dq_tc_wide<pgt::NV_DQK>(q, dout, lse, delta, k, v, dq, B, H, Lq, Lk, D,
+                                                 Dv, q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb,
+                                                 k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal, s);
     if (D > pgt::DC)
-      return pgt::launch_dq_tc_wide(q, dout, lse, delta, k, v, dq, B, H, Lq, Lk, D, q_sb, q_sl,
-                                    q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh,
-                                    scale, causal, s);
+      return pgt::launch_dq_tc_wide<pgt::DC>(q, dout, lse, delta, k, v, dq, B, H, Lq, Lk, D, D,
+                                             q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh,
+                                             v_sb, v_sl, v_sh, scale, causal, s);
     switch (pgt::tc::padded_d(D)) {
       case 48:
         return pgt::launch_dq_tc<48>(q, dout, lse, delta, k, v, dq, B, H, Lq, Lk, D, q_sb, q_sl,

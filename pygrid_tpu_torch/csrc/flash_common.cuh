@@ -21,6 +21,12 @@
 // D-slice grid axis: each block owns DC output columns and keeps the
 // accumulators of a D <= 128 block for them, while the full-D contractions
 // (S = Q K^T, dP = dO V^T) stream D in DC-wide chunks through shared memory.
+// The values may be narrower than the queries and keys (multi-head latent
+// attention: D = 192, Dv = 128). Where Dv <= DC < D <= NV_DQK, the bf16
+// kernels take the narrow-V path: the same wide kernels with 192-wide
+// chunks, so that one block owns all of its outputs (O and dV at Dv, dK and
+// dQ at D), S is formed once per tile pair over D and dP over Dv, and no
+// slice axis recomputes them. The f32 kernels take one D.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,6 +37,7 @@ namespace pgt {
 constexpr int TILE = 64;       // query rows and key rows per tile
 constexpr int DC = 128;        // head-dim columns a block owns; contraction chunk width
 constexpr int MAX_D = 512;     // widest head dim: the wide kernels' shared memory
+constexpr int NV_DQK = 192;    // widest query/key dim of the narrow-V path: dK's registers
 constexpr int THREADS = 256;   // 16 x 16 threads, 4 x 4 outputs each
 constexpr int JD = DC / 16;    // head-dim columns per thread
 constexpr int SPITCH = TILE + 1;  // row pitch of a [TILE, TILE] score tile
@@ -40,8 +47,23 @@ __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); 
 
 __host__ __device__ __forceinline__ int imin(int a, int b) { return a < b ? a : b; }
 
-// DC-wide chunks (and output slices) of a head dim D
-__host__ __device__ __forceinline__ int n_chunks(int D) { return (D + DC - 1) / DC; }
+// W-wide chunks (and output slices) of a head dim D: W = DC, or a wide
+// kernel's chunk width CW
+__host__ __device__ __forceinline__ int n_chunks(int D, int W) { return (D + W - 1) / W; }
+
+// 16-wide k-steps of a contraction over the first `width` columns of a
+// tile `cap` columns wide: none runs over a whole 16 columns of zeros.
+__host__ __device__ __forceinline__ int k_steps(int width, int cap) {
+  return (imin(width, cap) + 15) / 16;
+}
+
+// Shapes no kernel takes: D is the query/key width and Dv the value width,
+// which only the bf16 narrow-V path lets differ from D.
+inline bool bad_shape(int B, int H, int Lq, int Lk, int D, int Dv, int is_bf16) {
+  const bool narrow_v = is_bf16 && Dv >= 1 && Dv <= DC && DC < D && D <= NV_DQK;
+  return D < 1 || D > MAX_D || (Dv != D && !narrow_v) || Lq < 1 || Lk < 1 || B * H < 1 ||
+         B * H > 65535;
+}
 
 // Row pitch of a [TILE, D] tile in shared memory: the +1 puts neighbouring
 // rows in neighbouring banks for the column-wise reads of the products.

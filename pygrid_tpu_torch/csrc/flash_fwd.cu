@@ -47,7 +47,7 @@
 
 namespace pgt {
 
-// grid (ceil(Lq / TILE), B*H, n_chunks(D)): one block per (64-query tile,
+// grid (ceil(Lq / TILE), B*H, n_chunks(D, DC)): one block per (64-query tile,
 // b*h, DC-wide slice of the output columns). Where D > DC, Q and K stream
 // through shared memory in DC-wide chunks for the scores, and V's slice
 // rides with the last chunk.
@@ -72,7 +72,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int h = bh - b * H;
   const int qt = blockIdx.x;
   const int q0 = qt * TILE;
-  const int n_c = n_chunks(D);
+  const int n_c = n_chunks(D, DC);
   const int d0 = blockIdx.z * DC;  // this block's output columns [d0, d0 + dv)
   const int dv = imin(DC, D - d0);
   const float* qb = q + (long long)b * q_sb + (long long)h * q_sh;
@@ -226,7 +226,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((Lq + TILE - 1) / TILE, B * H, n_chunks(D));
+  const dim3 grid((Lq + TILE - 1) / TILE, B * H, n_chunks(D, DC));
   flash_fwd_kernel<<<grid, THREADS, smem, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (float*)out, (float*)lse, H, Lq, Lk, D,
       q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal);
@@ -445,34 +445,47 @@ int launch_fwd_tc(const void* q, const void* k, const void* v, void* out, void* 
   return (int)cudaGetLastError();
 }
 
-// ---- bf16, D > 128: tensor cores with a D-slice grid axis -------------------
+// ---- bf16, D > 128: tensor cores, and a grid axis over V's slices --------
 //
-// flash_fwd_tc_wide_kernel: the tensor-core forward above for head dims
-// DC < D <= MAX_D. The grid gains a slice axis: each block owns DC = 128
-// output columns [d0, d0 + DC) and keeps, for them, the O accumulators of
-// the D = 128 kernel. The scores need the full D, so the 64-query Q tile
-// stays in shared memory as n_chunks(D) DC-wide chunks (loaded once, 17 KB
-// each), K streams through a double-buffered ring chunk by chunk, and V's
-// slice rides with K's last chunk; Q's A fragments are re-read by ldmatrix
-// for every chunk, as the dQ kernel re-reads Q. Every slice recomputes S,
-// so the QK^T work grows with the number of slices (2x at D = 256); slice 0
-// writes lse. Shared memory: 17 KB per Q chunk plus 68 KB of ring, 136 KB
-// at D = 512. Without Q's fragments in registers ptxas gives it 176
-// registers and no spills (the D = 128 kernel: 236).
+// flash_fwd_tc_wide_kernel<CW>: the tensor-core forward above for a query/key
+// width D past DC = 128 (up to MAX_D) and a value width Dv of its own. The
+// scores need all of D, so the 64-query Q tile stays in shared memory as
+// n = ceil(D / CW) chunks CW columns wide (loaded once), K streams through a
+// double-buffered ring one chunk a stage, and V's DC-wide output slice
+// rides with K's last chunk; Q's A fragments are re-read by ldmatrix for
+// every k-step, as the dQ kernel re-reads Q. On the narrow-V path the
+// contraction runs as many k-steps as the chunk's real width needs
+// (tc::k_loop: fully unrolled for a whole chunk), so none runs over columns
+// of zeros; the slice path runs every chunk at its 128 columns. The grid's
+// slice axis runs over Dv in DC-wide slices, each with the O accumulators
+// of the D = 128 kernel; slice 0 writes lse. Dv is the last parameter, as in
+// flash_bwd.cu's wide kernels.
+// Two instantiations:
+// - CW = DC (D = Dv > 128): every slice recomputes S, so the QK^T work
+//   grows with the number of slices (2x at D = 256). 17 KB a Q chunk plus
+//   68 KB of ring, 136 KB at D = 512; without Q's fragments in registers
+//   ptxas gives it 178 registers and no spills (the D = 128 kernel: 236).
+// - CW = NV_DQK = 192, the narrow-V path (Dv <= 128 < D <= 192, multi-head
+//   latent attention's 192/128): one slice and one chunk, so S is formed
+//   once per tile pair over D and O at Dv; Q 25 KB, ring 84 KB (two blocks
+//   an SM), 233 registers and no spills.
 
+template <int CW>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
                          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                          float* __restrict__ lse, int H, int Lq, int Lk, int D, int q_sb,
                          int q_sl, int q_sh, int k_sb, int k_sl, int k_sh, int v_sb, int v_sl,
-                         int v_sh, float scale, int causal) {
+                         int v_sh, float scale, int causal, int Dv) {
   using namespace tc;
-  constexpr int P = DC + PAD;  // row pitch of every shared tile
+  constexpr int PQ = CW + PAD;  // row pitch of the Q and K tiles
+  constexpr int PV = DC + PAD;  // row pitch of the V tiles and the staged O
+  constexpr int SLOT = TC_BN * (PQ + PV);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int n_c = n_chunks(D);
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [n_c][BM][P], then O
-  __nv_bfloat16* sR = sQ + n_c * TC_BM * P;  // ring [2][K chunk, V slice][BN][P]
+  const int n_c = n_chunks(D, CW);
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [n_c][BM][PQ], then O
+  __nv_bfloat16* sR = sQ + n_c * TC_BM * PQ;  // ring [2][K chunk [BN][PQ], V slice [BN][PV]]
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -480,6 +493,8 @@ flash_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
   const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
   const int q0 = qt * TC_BM;
   const int d0 = blockIdx.z * DC;  // this block's output columns
+  if (CW == DC) Dv = D;             // the slice path: one width
+  const int dw = imin(DC, Dv - d0);
   const __nv_bfloat16* qb = q + (long long)b * q_sb + (long long)h * q_sh;
   const __nv_bfloat16* kb = k + (long long)b * k_sb + (long long)h * k_sh;
   const __nv_bfloat16* vb = v + (long long)b * v_sb + (long long)h * v_sh;
@@ -497,15 +512,14 @@ flash_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
   // stage st's K chunk (and, for the last chunk, V's slice) into ring slot st & 1
   auto issue = [&](int st) {
     const int kt = st / n_c, c = st - (st / n_c) * n_c;
-    __nv_bfloat16* dst = sR + (st & 1) * 2 * TC_BN * P;
-    load_tile_async<TC_BN, DC, TC_THREADS>(dst, kb + c * DC, k_sl, kt * TC_BN, Lk, D - c * DC);
+    __nv_bfloat16* dst = sR + (st & 1) * SLOT;
+    load_tile_async<TC_BN, CW, TC_THREADS>(dst, kb + c * CW, k_sl, kt * TC_BN, Lk, D - c * CW);
     if (c == n_c - 1)
-      load_tile_async<TC_BN, DC, TC_THREADS>(dst + TC_BN * P, vb + d0, v_sl, kt * TC_BN, Lk,
-                                             D - d0);
+      load_tile_async<TC_BN, DC, TC_THREADS>(dst + TC_BN * PQ, vb + d0, v_sl, kt * TC_BN, Lk, dw);
   };
   for (int c = 0; c < n_c; ++c)
-    load_tile_async<TC_BM, DC, TC_THREADS>(sQ + c * TC_BM * P, qb + c * DC, q_sl, q0, Lq,
-                                           D - c * DC);
+    load_tile_async<TC_BM, CW, TC_THREADS>(sQ + c * TC_BM * PQ, qb + c * CW, q_sl, q0, Lq,
+                                           D - c * CW);
   issue(0);
   cp_async_commit();
 
@@ -529,8 +543,11 @@ flash_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();  // stage st (and at st = 0, Q) is in shared memory
-    const __nv_bfloat16* Kt = sR + (st & 1) * 2 * TC_BN * P;
-    const __nv_bfloat16* Qc = sQ + c * TC_BM * P;
+    const __nv_bfloat16* Kt = sR + (st & 1) * SLOT;
+    const __nv_bfloat16* Qc = sQ + c * TC_BM * PQ;
+    // the chunk's k-steps: the slice path's whole 128 columns (zeros past D
+    // add nothing), the narrow-V path's to the real width
+    const int nks = CW == DC ? CW / 16 : k_steps(D - c * CW, CW);
 
     if (c == 0) {
 #pragma unroll
@@ -539,22 +556,21 @@ flash_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
         for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
     }
     // S += Q_c K_c^T
-#pragma unroll
-    for (int ks = 0; ks < DC / 16; ++ks) {
+    k_loop<CW / 16>(0, nks, [&](int ks) {
       uint32_t qf[4];
-      ldmatrix_x4(qf, Qc + (wrow + (lane & 15)) * P + ks * 16 + (lane >> 4) * 8);
+      ldmatrix_x4(qf, Qc + (wrow + (lane & 15)) * PQ + ks * 16 + (lane >> 4) * 8);
 #pragma unroll
       for (int np = 0; np < TC_BN / 16; ++np) {
         uint32_t kf[4];
-        ldmatrix_x4(kf, Kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * P + ks * 16 +
+        ldmatrix_x4(kf, Kt + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * PQ + ks * 16 +
                             ((lane >> 3) & 1) * 8);
         mma_bf16(s[2 * np], qf, kf[0], kf[1]);
         mma_bf16(s[2 * np + 1], qf, kf[2], kf[3]);
       }
-    }
+    });
 
     if (c == n_c - 1) {  // S is complete: mask, online softmax, O += P V
-      const __nv_bfloat16* Vt = Kt + TC_BN * P;
+      const __nv_bfloat16* Vt = Kt + TC_BN * PQ;
       const int k0 = kt * TC_BN;
       const bool need_mask = (causal && kt == qt) || k0 + TC_BN > Lk;
 #pragma unroll
@@ -605,9 +621,9 @@ flash_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-        for (int np = 0; np < DC / 16; ++np) {
+        for (int np = 0; np < DC / 16; ++np) {  // columns past Dv: zeros, never written
           uint32_t vf[4];
-          ldmatrix_x4_trans(vf, Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
+          ldmatrix_x4_trans(vf, Vt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * PV +
                                     np * 16 + (lane >> 4) * 8);
           mma_bf16(o[2 * np], pa, vf[0], vf[1]);
           mma_bf16(o[2 * np + 1], pa, vf[2], vf[3]);
@@ -630,9 +646,9 @@ flash_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int n = 0; n < DC / 8; ++n) {
     const int col = n * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(sQ + (wrow + g) * P + col) =
+    *reinterpret_cast<uint32_t*>(sQ + (wrow + g) * PV + col) =
         pack_bf16(o[n][0] * inv0, o[n][1] * inv0);
-    *reinterpret_cast<uint32_t*>(sQ + (wrow + g + 8) * P + col) =
+    *reinterpret_cast<uint32_t*>(sQ + (wrow + g + 8) * PV + col) =
         pack_bf16(o[n][2] * inv1, o[n][3] * inv1);
   }
   if (t == 0 && blockIdx.z == 0) {
@@ -644,49 +660,56 @@ flash_fwd_tc_wide_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   __syncthreads();
-  store_tile<TC_BM, DC, TC_THREADS>(out + ((long long)b * Lq * H + h) * D + d0, (long long)H * D,
-                                    sQ, q0, Lq, D - d0);
+  store_tile<TC_BM, DC, TC_THREADS>(out + ((long long)b * Lq * H + h) * Dv + d0,
+                                    (long long)H * Dv, sQ, q0, Lq, dw);
 }
 
+template <int CW>
 int launch_fwd_tc_wide(const void* q, const void* k, const void* v, void* out, void* lse, int B,
-                       int H, int Lq, int Lk, int D, int q_sb, int q_sl, int q_sh, int k_sb,
-                       int k_sl, int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal,
-                       cudaStream_t stream) {
-  const size_t smem =
-      sizeof(__nv_bfloat16) * (n_chunks(D) * TC_BM + 4 * TC_BN) * (DC + tc::PAD);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_wide_kernel,
+                       int H, int Lq, int Lk, int D, int Dv, int q_sb, int q_sl, int q_sh,
+                       int k_sb, int k_sl, int k_sh, int v_sb, int v_sl, int v_sh, float scale,
+                       int causal, cudaStream_t stream) {
+  const size_t smem = sizeof(__nv_bfloat16) * ((n_chunks(D, CW) * TC_BM + 2 * TC_BN) *
+                                                   (CW + tc::PAD) +
+                                               2 * TC_BN * (DC + tc::PAD));
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_wide_kernel<CW>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (Lq + TC_BM - 1) / TC_BM, n_chunks(D));
-  flash_fwd_tc_wide_kernel<<<grid, TC_THREADS, smem, stream>>>(
+  const dim3 grid(B * H, (Lq + TC_BM - 1) / TC_BM, n_chunks(Dv, DC));
+  flash_fwd_tc_wide_kernel<CW><<<grid, TC_THREADS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
       (__nv_bfloat16*)out, (float*)lse, H, Lq, Lk, D, q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb,
-      v_sl, v_sh, scale, causal);
+      v_sl, v_sh, scale, causal, Dv);
   return (int)cudaGetLastError();
 }
 
 }  // namespace pgt
 
-// out: contiguous [B, Lq, H, D] in the input dtype; lse: contiguous f32
-// [B*H, Lq]; 1 <= D <= MAX_D. bf16 runs on the tensor cores and needs
-// D % 8 == 0, strides that are multiples of 8 elements and 16-byte-aligned
-// q, k, v (the wrapper makes a padded copy where a view is not so); D > DC
-// takes the wide kernel. Returns the cudaError_t of the launch (0 =
-// launched).
+// out: contiguous [B, Lq, H, Dv] in the input dtype; lse: contiguous f32
+// [B*H, Lq]; D is the query/key width, 1 <= D <= MAX_D, and Dv the value
+// width: Dv == D, or in bf16 the narrow-V shape Dv <= DC < D <= NV_DQK. bf16
+// runs on the tensor cores and needs D and Dv % 8 == 0, strides that are
+// multiples of 8 elements and 16-byte-aligned q, k, v (the wrapper makes a
+// padded copy where a view is not so); D > DC takes the wide kernel.
+// Returns the cudaError_t of the launch (0 = launched).
 extern "C" int pgt_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
-                             int B, int H, int Lq, int Lk, int D, int q_sb, int q_sl, int q_sh,
-                             int k_sb, int k_sl, int k_sh, int v_sb, int v_sl, int v_sh,
+                             int B, int H, int Lq, int Lk, int D, int Dv, int q_sb, int q_sl,
+                             int q_sh, int k_sb, int k_sl, int k_sh, int v_sb, int v_sl, int v_sh,
                              float scale, int causal, int is_bf16, void* stream) {
-  if (D < 1 || D > pgt::MAX_D || Lq < 1 || Lk < 1 || B * H < 1 || B * H > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (pgt::bad_shape(B, H, Lq, Lk, D, Dv, is_bf16)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
     if (!pgt::tc::layout_ok(q, D, q_sb, q_sl, q_sh) || !pgt::tc::layout_ok(k, D, k_sb, k_sl, k_sh) ||
-        !pgt::tc::layout_ok(v, D, v_sb, v_sl, v_sh))
+        !pgt::tc::layout_ok(v, Dv, v_sb, v_sl, v_sh))
       return (int)cudaErrorInvalidValue;
+    if (Dv != D)
+      return pgt::launch_fwd_tc_wide<pgt::NV_DQK>(q, k, v, out, lse, B, H, Lq, Lk, D, Dv, q_sb,
+                                                  q_sl, q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh,
+                                                  scale, causal, s);
     if (D > pgt::DC)
-      return pgt::launch_fwd_tc_wide(q, k, v, out, lse, B, H, Lq, Lk, D, q_sb, q_sl, q_sh, k_sb,
-                                     k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal, s);
+      return pgt::launch_fwd_tc_wide<pgt::DC>(q, k, v, out, lse, B, H, Lq, Lk, D, D, q_sb, q_sl,
+                                              q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale,
+                                              causal, s);
     switch (pgt::tc::padded_d(D)) {
       case 48:
         return pgt::launch_fwd_tc<48>(q, k, v, out, lse, B, H, Lq, Lk, D, q_sb, q_sl, q_sh, k_sb,

@@ -116,6 +116,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// body(ks) for the k-steps ks in [k0, k1), k1 - k0 <= M: fully unrolled
+// with no branch, one stretch of code whose loads and products the
+// scheduler interleaves, where the range holds the N steps of a whole chunk
+// (the common case); else each of M steps guarded (a chunk cut short by its
+// tensor's width).
+template <int N, int M = N, typename F>
+__device__ __forceinline__ void k_loop(int k0, int k1, F&& body) {
+  if (k1 - k0 == N) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) body(k0 + i);
+  } else {
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+      if (k0 + i < k1) body(k0 + i);
+  }
+}
+
 // Copy rows [row0, row0 + ROWS) x cols [0, DP) of one (b, h) slice into a
 // bf16 shared tile of pitch DP + PAD, 16 bytes per cp.async. Rows at or past
 // L and columns at or past D are zero-filled (D % 8 == 0, so a 16-byte chunk

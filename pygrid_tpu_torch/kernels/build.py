@@ -41,16 +41,16 @@ LIBRARIES: dict[str, tuple[str, dict[str, list]]] = {
     "flash_fwd": (
         "flash_fwd.cu",
         {
-            "pgt_flash_fwd": [_P] * 5 + [_I] * 5 + _STRIDES * 3
+            "pgt_flash_fwd": [_P] * 5 + [_I] * 6 + _STRIDES * 3
             + [_F, _I, _I, _P],
         },
     ),
     "flash_bwd": (
         "flash_bwd.cu",
         {
-            "pgt_flash_bwd_dkv": [_P] * 8 + [_I] * 5 + _STRIDES * 4
+            "pgt_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + _STRIDES * 4
             + [_F, _I, _I, _P],
-            "pgt_flash_bwd_dq": [_P] * 7 + [_I] * 5 + _STRIDES * 4
+            "pgt_flash_bwd_dq": [_P] * 7 + [_I] * 6 + _STRIDES * 4
             + [_F, _I, _I, _P],
         },
     ),

@@ -12,9 +12,8 @@ published ``deepseek_v3`` configurations run them without a query LoRA
 - MLA: ``q = x W_q`` gives each head ``q_nope ‖ q_pe``; ``x W_kva`` gives a
   latent ``c`` and one ``k_pe`` for all heads; ``RMSNorm(c) W_kvb`` gives
   each head ``k_nope ‖ v``; RoPE rotates ``q_pe`` and ``k_pe``; attention
-  runs causal at ``D_qk = nope + rope`` with scale ``D_qk^-½``, then
-  ``W_o``. The attention function takes one D for q, k and v, so ``v`` is
-  padded with zeros to ``D_qk`` and the output sliced back to ``D_v``.
+  runs causal at ``D_qk = nope + rope`` with scale ``D_qk^-½`` on ``v`` at
+  its own width ``D_v`` (the flash kernels' narrow-V path), then ``W_o``.
 - The first ``n_dense`` layers' MLP is a SwiGLU of width ``d_ff``; every
   later layer's is the shared experts (one SwiGLU of ``n_shared · moe_ff``)
   plus the routed experts that this card holds
@@ -203,8 +202,8 @@ def features(
             q = torch.cat([q_nope, c(rope(q_pe, cos, sin))], -1)
             k_pe = c(rope(k_pe[:, :, None, :], cos, sin)).expand(B, L, H, dr)
             k = torch.cat([k_nope, k_pe], -1)
-            a = attn_fn(q, k, F.pad(v, (0, dqk - dv)), causal=True, scale=dqk**-0.5)
-            return c(a[..., :dv].reshape(B, L, H * dv)) @ c(wo)
+            a = attn_fn(q, k, v, causal=True, scale=dqk**-0.5)
+            return c(a.reshape(B, L, H * dv)) @ c(wo)
 
     def dense_block(h, *lp):
         with region("pgt.model.block"):

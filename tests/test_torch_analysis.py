@@ -312,11 +312,20 @@ GL5_CASES = {
         "ring_matmul.cu", "(unsigned)tiles_m, (unsigned)batch", "(unsigned)M, (unsigned)batch",
         1, "ring_matmul_tc_kernel<<<", "GL501", 1),
     "helper_grid_by_wrong_chunk": (
-        "flash_common.cuh", "return (D + DC - 1) / DC;", "return (D + TILE - 1) / TILE;", 1,
-        ("flash_fwd.cu:flash_fwd_kernel<<<", "flash_fwd.cu:flash_fwd_tc_wide_kernel<<<",
+        "flash_common.cuh", "return (D + W - 1) / W;", "return (D + TILE - 1) / TILE;", 1,
+        # the wide kernels' slice axis at both of their instantiations
+        ("flash_fwd.cu:flash_fwd_kernel<<<", "flash_fwd.cu:flash_fwd_tc_wide_kernel<CW><<<",
+         "flash_fwd.cu:flash_fwd_tc_wide_kernel<CW><<<",
          "flash_bwd.cu:flash_bwd_dkv_kernel<<<", "flash_bwd.cu:flash_bwd_dq_kernel<<<",
-         "flash_bwd.cu:flash_bwd_dkv_tc_wide_kernel<<<",
-         "flash_bwd.cu:flash_bwd_dq_tc_wide_kernel<<<"), "GL501", 1),
+         "flash_bwd.cu:flash_bwd_dkv_tc_wide_kernel<CW><<<",
+         "flash_bwd.cu:flash_bwd_dkv_tc_wide_kernel<CW><<<",
+         "flash_bwd.cu:flash_bwd_dq_tc_wide_kernel<CW><<<",
+         "flash_bwd.cu:flash_bwd_dq_tc_wide_kernel<CW><<<"),
+        "GL501", 1),
+    "narrow_v_grid_by_the_value_slice": (
+        "flash_bwd.cu", "(Lq + TC_DQ_BQ - 1) / TC_DQ_BQ, n_chunks(D, CW));",
+        "(Lq + TC_DQ_BQ - 1) / TC_DQ_BQ, n_chunks(D, DC));", 1,
+        "flash_bwd_dq_tc_wide_kernel<CW><<<", "GL501", 1),
     "block_is_not_launch_bounds": (
         "flash_fwd.cu", "flash_fwd_tc_kernel<DP><<<grid, TC_THREADS, smem, stream>>>",
         "flash_fwd_tc_kernel<DP><<<grid, 2 * TC_THREADS, smem, stream>>>", 1,
@@ -349,15 +358,19 @@ def test_gl5_mutated_launch_fires_at_its_line(tmp_path, case):
 
 def test_gl5_resolves_the_real_launches():
     launches = {(lc.name, lc.launcher): lc for lc in launch_model(str(CSRC))}
-    assert len(launches) == 16
+    assert len(launches) == 19
     fwd = launches[("flash_fwd_tc_kernel<128>", "launch_fwd_tc")]
     assert (fwd.block, fwd.threads, fwd.smem()) == (128, 128, 2 * (64 + 4 * 64) * 136)
     ring = launches[("ring_matmul_tc_kernel", "pgt_ring_matmul")]
     assert (ring.block, ring.smem()) == (256, 2 * 8 * 128 * 34 + 2 * 8 * 128 * 48)
     assert axis_tiles(ring.kernel_fn, ring.kernel_env()) == {"x": 64, "y": 64}
-    wide = launches[("flash_fwd_tc_wide_kernel", "launch_fwd_tc_wide")]
+    wide = launches[("flash_fwd_tc_wide_kernel<128>", "launch_fwd_tc_wide")]
     assert wide.smem() is None  # D is a runtime value: quiet
     assert wide.smem(D=512) == 2 * (64 * 4 + 4 * 64) * 136 <= SMEM_LIMIT
+    narrow_v = launches[("flash_fwd_tc_wide_kernel<192>", "launch_fwd_tc_wide")]
+    assert narrow_v.smem(D=192) == 2 * (3 * 64 * 200 + 2 * 64 * 136) <= SMEM_LIMIT
+    dkv = launches[("flash_bwd_dkv_tc_wide_kernel<192>", "launch_dkv_tc_wide")]
+    assert dkv.smem(D=192) == 2 * (64 + 2 * 16) * (200 + 136) + 4 * 4 * 16
     f32 = launches[("flash_fwd_kernel", "launch_fwd")]
     assert f32.smem(D=64) == 4 * (3 * 64 * 65 + 64 * 65 + 3 * 64)
 

@@ -215,6 +215,35 @@ def test_rope_layouts_give_the_same_scores():
     torch.testing.assert_close(port, ref, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_v_at_its_own_width_equals_the_former_padded_call(compute_dtype):
+    """``features`` hands v to attention at D_v; before the flash kernels'
+    narrow-V path it padded v with zeros to D_qk and sliced the output back
+    to D_v. Both give the same hidden states and parameter gradients, with
+    the flash wrapper and with the plain attention."""
+    import torch.nn.functional as F
+
+    from pygrid_tpu_torch.parallel import flash_attention as fa
+    from pygrid_tpu_torch.parallel.ring_attention import attention
+
+    params, X, _ = _setup(4)
+    dqk, dv_ = CFG.qk_nope + CFG.qk_rope, CFG.v_head
+
+    def padded(attn):
+        return lambda q, k, v, **kw: attn(q, k, F.pad(v, (0, dqk - dv_)), **kw)[..., :dv_]
+
+    def run(attn):
+        leaves = [p.clone().requires_grad_() for p in params]
+        h = dv.features(leaves, X, CFG, attn_fn=attn, compute_dtype=compute_dtype)
+        return h.detach(), torch.autograd.grad(h.square().mean(), leaves[:-1])  # not the head
+
+    for attn in (fa.flash_attention, attention):
+        (h, g), (h_pad, g_pad) = run(attn), run(padded(attn))
+        torch.testing.assert_close(h, h_pad, rtol=1e-6, atol=1e-6)
+        for a, b in zip(g, g_pad):
+            torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("remat", [False, True])
 def test_counters_read_the_round_and_not_its_recompute(monkeypatch, remat):
     params, X, y = _setup(3)

@@ -106,6 +106,98 @@ def test_gradients_match_pallas(Lq, Lk, causal, D):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4)
 
 
+# values narrower than queries and keys (multi-head latent attention): the
+# Pallas kernel takes one D, so the JAX side runs with v zero-padded to D_qk
+# and its output sliced back, as the model ran it before the narrow-V path
+NARROW_V = [
+    pytest.param(1, 65, 65, 2, 192, 128, True, id="L65-192-128-causal"),
+    pytest.param(1, 64, 97, 1, 192, 128, False, id="Lq64-Lk97-192-128"),
+    pytest.param(1, 100, 100, 2, 160, 96, True, id="L100-160-96-causal"),
+]
+
+
+def _pad_v(v, Dqk):
+    return jnp.pad(v, [(0, 0)] * 3 + [(0, Dqk - v.shape[-1])])
+
+
+@pytest.mark.parametrize("B,Lq,Lk,H,Dqk,Dv,causal", NARROW_V)
+def test_narrow_v_forward_and_lse_match_pallas(B, Lq, Lk, H, Dqk, Dv, causal):
+    q, k, v = _qkv(B, Lq, Lk, H, Dqk, seed=7)
+    xs = [q, k, v[..., :Dv]]
+    qj, kj, vj = _jax(xs)
+    out_j, lse_j = _fwd_impl(
+        qj, kj, _pad_v(vj, Dqk), causal, Dqk**-0.5, True, BLOCK_Q, BLOCK_K, None
+    )
+    out_t, lse_t = fa.flash_fwd(*_torch(xs), causal, Dqk**-0.5)
+    assert out_t.shape == (B, Lq, H, Dv)
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j)[..., :Dv], atol=3e-5)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), atol=3e-5)
+    got = fa.flash_attention(*_torch(xs), causal=causal)  # default scale D_qk^-0.5
+    np.testing.assert_allclose(got.numpy(), np.asarray(out_j)[..., :Dv], atol=3e-5)
+
+
+@pytest.mark.parametrize("B,Lq,Lk,H,Dqk,Dv,causal", NARROW_V)
+def test_narrow_v_gradients_match_pallas(B, Lq, Lk, H, Dqk, Dv, causal):
+    """dQ, dK at D_qk and dV at D_v through the autograd Function against
+    jax.grad through the Pallas VJP with v zero-padded and sliced back."""
+    q, k, v = _qkv(B, Lq, Lk, H, Dqk, seed=8)
+    xs = [q, k, v[..., :Dv]]
+    g_j = jax.grad(
+        lambda q, k, v: jnp.sum(jnp.tanh(
+            jax_flash(q, k, _pad_v(v, Dqk), causal=causal, interpret=True)[..., :Dv])),
+        argnums=(0, 1, 2),
+    )(*_jax(xs))
+    ts = [t.requires_grad_() for t in _torch(xs)]
+    g_t = torch.autograd.grad(torch.tanh(fa.flash_attention(*ts, causal=causal)).sum(), ts)
+    assert [g.shape[-1] for g in g_t] == [Dqk, Dqk, Dv]
+    for a, b in zip(g_t, g_j):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4)
+
+
+@pytest.mark.parametrize(
+    "dtype,Dqk,Dv,narrow",
+    [
+        (torch.bfloat16, 192, 128, True),
+        (torch.bfloat16, 160, 96, True),
+        (torch.bfloat16, 192, 192, False),
+        (torch.bfloat16, 256, 128, False),
+        (torch.bfloat16, 64, 64, False),
+        (torch.float32, 192, 128, False),
+    ],
+)
+def test_narrow_v_counter_engages_only_on_its_shape(monkeypatch, dtype, Dqk, Dv, narrow):
+    """The wrappers' kernel path, on meta tensors with the C entries
+    recorded instead of launched: each wrapper counts one launch, and one
+    narrow-V launch only at D_v <= 128 < D_qk <= 192 in bf16; the C
+    entries get the widths the kernels run at, and the outputs come back
+    at the tensors' own widths."""
+    calls = {}
+    monkeypatch.setattr(fa, "_check_cuda", lambda *xs: None)
+    monkeypatch.setattr(fa.build, "launch",
+                        lambda lib, entry, device, *args: calls.setdefault(entry, args))
+    B, L, H = 1, 64, 2
+
+    def meta(width, dt=dtype):
+        return torch.empty((B, L, H, width), device="meta", dtype=dt)
+
+    q, k, v, do = meta(Dqk), meta(Dqk), meta(Dv), meta(Dv)
+    lse = delta = torch.empty((B * H, L), device="meta")
+    fa.reset_launch_counts()
+    out, _ = fa.flash_fwd(q, k, v, True, 0.1)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, 0.1)
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, True, 0.1)
+    assert [x.shape[-1] for x in (out, dk, dv, dq)] == [Dv, Dqk, Dv, Dqk]
+    assert fa.launch_counts() == {"flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+    assert fa.narrow_v_counts() == dict.fromkeys(fa.launch_counts(), int(narrow))
+    widths = fa._widths(Dqk, Dv, dtype == torch.bfloat16)
+    assert (widths[0] != widths[1]) == narrow
+    # after the pointers (5, 8 and 7): B, H, Lq, Lk, D_qk, D_v
+    assert calls["pgt_flash_fwd"][9:11] == widths
+    assert calls["pgt_flash_bwd_dkv"][12:14] == widths
+    assert calls["pgt_flash_bwd_dq"][11:13] == widths
+    fa.reset_launch_counts()
+
+
 def test_bf16_inputs_match_pallas():
     xs = _qkv(1, 256, 256, 2, 64, seed=5)
     out_j = jax_flash(*_jax(xs, jnp.bfloat16), causal=True, interpret=True)
@@ -158,6 +250,7 @@ def test_wrappers_count_only_kernel_launches():
     assert fa.launch_counts() == {
         "flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
     }
+    assert fa.narrow_v_counts() == fa.launch_counts()
 
 
 def test_tensor_core_layout_step():
@@ -166,16 +259,82 @@ def test_tensor_core_layout_step():
     copied, zero-filled past D up to a multiple of 8."""
     qkv = torch.randn((2, 5, 3, 2, 64)).to(torch.bfloat16)
     views = [qkv[:, :, i] for i in range(3)]
-    same, Dp = fa._tc_layout(*views)
-    assert Dp == 64 and all(a is b for a, b in zip(same, views))
+    *same, _, Dqk, Dv = fa._layout(*views)
+    assert (Dqk, Dv) == (64, 64) and all(a is b for a, b in zip(same, views))
     x = torch.randn((2, 5, 3, 2, 36)).to(torch.bfloat16)[:, :, 1]
-    (padded,), Dp = fa._tc_layout(x)
-    assert Dp == 40 and padded.shape == (2, 5, 2, 40) and padded.is_contiguous()
+    padded = fa._fit(x, 40, True)
+    assert padded.shape == (2, 5, 2, 40) and padded.is_contiguous()
     assert torch.equal(padded[..., :36], x) and not padded[..., 36:].any()
     odd = torch.randn((2, 5, 3, 40)).to(torch.bfloat16)[:, :, 1:]  # head stride 40, base +80 B
-    (copied,), Dp = fa._tc_layout(odd)
-    assert Dp == 40 and torch.equal(copied, odd)
+    copied = fa._fit(odd, 40, True)
+    assert torch.equal(copied, odd)
     assert copied.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in copied.stride()[:3])
+
+
+@pytest.mark.parametrize(
+    "dtype,Dqk,Dv,want",
+    [
+        (torch.bfloat16, 192, 128, (192, 128)),  # multi-head latent attention
+        (torch.bfloat16, 160, 96, (160, 96)),
+        (torch.bfloat16, 190, 126, (192, 128)),  # each rounded up to a multiple of 8
+        (torch.bfloat16, 256, 128, (256, 256)),  # D_qk past 192: one width
+        (torch.bfloat16, 128, 64, (128, 128)),   # D_qk within 128: one width
+        (torch.bfloat16, 64, 192, (192, 192)),   # v wider: one width
+        (torch.float32, 192, 128, (192, 192)),   # the f32 kernels take one D
+    ],
+)
+def test_kernel_widths_follow_the_shapes(dtype, Dqk, Dv, want):
+    """The kernels' (D_qk, D_v) come from the tensors' widths alone: the
+    narrow-V path keeps them apart where D_v <= 128 < D_qk <= 192 in bf16,
+    any other pair runs at one width with the narrower side zero-padded.
+    q and k of the MLA shape pass as they are (a view of v too), never
+    padded to each other's width."""
+    assert fa._widths(Dqk, Dv, dtype == torch.bfloat16) == want
+    kv = torch.randn((1, 5, 2, 64 + Dv)).to(dtype)
+    q, k = torch.randn((2, 1, 5, 2, Dqk)).to(dtype)
+    v, do = kv[..., 64:], torch.randn((1, 5, 2, Dv)).to(dtype)
+    q2, k2, v2, do2, *widths = fa._layout(q, k, v, do)
+    assert tuple(widths) == want
+    assert [x.shape[-1] for x in (q2, k2, v2, do2)] == [want[0]] * 2 + [want[1]] * 2
+    for a, b in zip((q2, k2, v2, do2), (q, k, v, do)):
+        assert torch.equal(a[..., :b.shape[-1]], b) and not a[..., b.shape[-1]:].any()
+    if want == (Dqk, Dv) and Dv % 8 == 0 and (64 + Dv) % 8 == 0:
+        assert v2 is v  # the strided view of the kv projection is read in place
+
+
+@pytest.mark.cuda
+def test_narrow_v_kernels_match_plain_versions_on_card():
+    """The narrow-V path on the card at [1, 512, 2, 192/128] bf16, causal
+    and not: each kernel against its plain version, one narrow-V launch
+    each, and dK/dV and dQ the same bits twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels have no CPU mode")
+    B, L, H, Dqk, Dv = 1, 512, 2, 192, 128
+    for causal in (True, False):
+        g = torch.Generator(device="cuda").manual_seed(1)
+        q, k = (torch.randn((B, L, H, Dqk), generator=g, device="cuda").bfloat16()
+                for _ in range(2))
+        v, do = (torch.randn((B, L, H, Dv), generator=g, device="cuda").bfloat16()
+                 for _ in range(2))
+        s = Dqk**-0.5
+        fa.reset_launch_counts()
+        out, lse = fa.flash_fwd(q, k, v, causal, s)
+        out_r, lse_r = fa.flash_fwd_reference(q, k, v, causal, s)
+        delta = fa.softmax_delta(out_r, do)
+        got = [out, lse, *fa.flash_bwd_dkv(q, k, v, do, lse_r, delta, causal, s),
+               fa.flash_bwd_dq(q, k, v, do, lse_r, delta, causal, s)]
+        ref = [out_r, lse_r,
+               *fa.flash_bwd_dkv_reference(q, k, v, do, lse_r, delta, causal, s),
+               fa.flash_bwd_dq_reference(q, k, v, do, lse_r, delta, causal, s)]
+        torch.cuda.synchronize()
+        assert [x.shape[-1] for x in got] == [Dv, L, Dqk, Dv, Dqk]  # lse: [B·H, L]
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a.float(), b.float(), atol=1e-2, rtol=1e-2)
+        assert fa.launch_counts() == {"flash_fwd": 1, "flash_bwd_dkv": 1, "flash_bwd_dq": 1}
+        assert fa.narrow_v_counts() == fa.launch_counts()
+        again = fa.flash_bwd_dkv(q, k, v, do, lse_r, delta, causal, s)
+        assert all(torch.equal(a, b) for a, b in zip(again, got[2:4]))
+        assert torch.equal(fa.flash_bwd_dq(q, k, v, do, lse_r, delta, causal, s), got[4])
 
 
 @pytest.mark.cuda

@@ -7,7 +7,7 @@ mma.sync, cp.async) are emulated with their fragment layouts. So the bf16
 tensor-core kernels' own index arithmetic -- fragment addressing, masks,
 the double-buffered pipeline, the layout preconditions -- runs here, on the
 tile and layout edges chip_smoke.py holds them to on the card, through the
-same C entries and the wrapper's layout step (`_tc_layout`). The f32 FMA
+same C entries and the wrapper's layout step (`_layout`). The f32 FMA
 kernels ride along.
 
 The emulated mma sums its 16 products in order in f32, not as the tensor
@@ -35,26 +35,37 @@ ROOT = Path(__file__).resolve().parent.parent
 CSRC = ROOT / "pygrid_tpu_torch" / "csrc"
 EMU = Path(__file__).resolve().parent / "cuda_emu"
 
-# id: (B, Lq, Lk, H, D, causal, q/k/v as views of one [B, L, 3, H, D], dtype)
+# id: (B, Lq, Lk, H, D, Dv, causal, q/k/v as views of one [B, L, 3, H, D], dtype)
 CASES = {
-    "L64-D64-causal": (1, 64, 64, 2, 64, True, False, "bfloat16"),
-    "L65-D40-causal": (1, 65, 65, 2, 40, True, False, "bfloat16"),
-    "L129-D128-causal": (1, 129, 129, 1, 128, True, False, "bfloat16"),
-    "L127-D128": (1, 127, 127, 1, 128, False, False, "bfloat16"),
-    "Lq64-Lk129-D64": (1, 64, 129, 2, 64, False, False, "bfloat16"),
-    "L129-D36-padded-copy": (1, 129, 129, 1, 36, True, False, "bfloat16"),
-    "L65-D64-qkv-views": (2, 65, 65, 1, 64, True, True, "bfloat16"),
-    "L65-D40-f32": (1, 65, 65, 1, 40, True, False, "float32"),
+    "L64-D64-causal": (1, 64, 64, 2, 64, 64, True, False, "bfloat16"),
+    "L65-D40-causal": (1, 65, 65, 2, 40, 40, True, False, "bfloat16"),
+    "L129-D128-causal": (1, 129, 129, 1, 128, 128, True, False, "bfloat16"),
+    "L127-D128": (1, 127, 127, 1, 128, 128, False, False, "bfloat16"),
+    "Lq64-Lk129-D64": (1, 64, 129, 2, 64, 64, False, False, "bfloat16"),
+    "L129-D36-padded-copy": (1, 129, 129, 1, 36, 36, True, False, "bfloat16"),
+    "L65-D64-qkv-views": (2, 65, 65, 1, 64, 64, True, True, "bfloat16"),
+    "L65-D40-f32": (1, 65, 65, 1, 40, 40, True, False, "float32"),
     # Lk off dQ's 64-key tile: a ragged last key tile
-    "L97-D64-causal": (1, 97, 97, 2, 64, True, False, "bfloat16"),
-    "Lq65-Lk97-D48": (1, 65, 97, 1, 48, False, False, "bfloat16"),
+    "L97-D64-causal": (1, 97, 97, 2, 64, 64, True, False, "bfloat16"),
+    "Lq65-Lk97-D48": (1, 65, 97, 1, 48, 48, False, False, "bfloat16"),
     # D past 128: the wide kernels' D-slice grid axis and streamed chunks
-    "L65-D160-causal": (1, 65, 65, 1, 160, True, False, "bfloat16"),
-    "Lq64-Lk33-D160": (1, 64, 33, 1, 160, False, False, "bfloat16"),
-    "L63-D256-causal": (1, 63, 63, 1, 256, True, False, "bfloat16"),
-    "Lq65-Lk97-D256": (1, 65, 97, 1, 256, False, False, "bfloat16"),
-    "L65-D160-f32-causal": (1, 65, 65, 1, 160, True, False, "float32"),
-    "L63-D256-f32": (1, 63, 63, 1, 256, False, False, "float32"),
+    "L65-D160-causal": (1, 65, 65, 1, 160, 160, True, False, "bfloat16"),
+    "Lq64-Lk33-D160": (1, 64, 33, 1, 160, 160, False, False, "bfloat16"),
+    "L63-D256-causal": (1, 63, 63, 1, 256, 256, True, False, "bfloat16"),
+    "Lq65-Lk97-D256": (1, 65, 97, 1, 256, 256, False, False, "bfloat16"),
+    "L65-D160-f32-causal": (1, 65, 65, 1, 160, 160, True, False, "float32"),
+    "L63-D256-f32": (1, 63, 63, 1, 256, 256, False, False, "float32"),
+    # values narrower than queries and keys: the narrow-V path (one block
+    # owns O and dV at Dv, dK and dQ at D); the views case takes v as the
+    # first Dv columns of its slice of the [B, L, 3, H, D] tensor
+    "L65-Dqk192-Dv128-causal": (1, 65, 65, 2, 192, 128, True, False, "bfloat16"),
+    "Lq65-Lk97-Dqk192-Dv128": (1, 65, 97, 1, 192, 128, False, False, "bfloat16"),
+    "L97-Dqk160-Dv96-causal": (1, 97, 97, 1, 160, 96, True, False, "bfloat16"),
+    "L65-Dqk192-Dv128-qkv-views": (2, 65, 65, 1, 192, 128, True, True, "bfloat16"),
+    # D_v well under 128: S runs most of its k-steps past dP's
+    "Lq64-Lk65-Dqk192-Dv40": (1, 64, 65, 1, 192, 40, False, False, "bfloat16"),
+    # Dv < D off the narrow-V shapes: one width, v zero-padded (f32 too)
+    "L65-Dqk192-Dv128-f32": (1, 65, 65, 1, 192, 128, True, False, "float32"),
 }
 TOL = {"bfloat16": 1e-2, "float32": 1e-4}  # atol and rtol
 OUTPUTS = ("out", "lse", "dk", "dv", "dq")
@@ -107,58 +118,57 @@ def run_cases(lib_path: str) -> dict:
         for fn, argtypes in build.LIBRARIES[lib_name][1].items():
             getattr(lib, fn).argtypes = argtypes
     results = {}
-    for case, (B, Lq, Lk, H, D, causal, views, dt) in CASES.items():
+    for case, (B, Lq, Lk, H, D, Dv, causal, views, dt) in CASES.items():
         dtype = getattr(torch, dt)
-        rng = np.random.default_rng(Lq * 1000 + D)
+        rng = np.random.default_rng(Lq * 1000 + D + Dv)
 
         def rnd(*shape):
             return torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dtype)
 
         if views:
             qkv = rnd(B, Lq, 3, H, D)
-            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2, :, :Dv]
         else:
-            q, k, v = rnd(B, Lq, H, D), rnd(B, Lk, H, D), rnd(B, Lk, H, D)
-        do = rnd(B, Lq, H, D)
+            q, k, v = rnd(B, Lq, H, D), rnd(B, Lk, H, D), rnd(B, Lk, H, Dv)
+        do = rnd(B, Lq, H, Dv)
         scale = D**-0.5
         out_r, lse_r = fa.flash_fwd_reference(q, k, v, causal, scale)
         delta = fa.softmax_delta(out_r, do).contiguous()
         dk_r, dv_r = fa.flash_bwd_dkv_reference(q, k, v, do, lse_r, delta, causal, scale)
         dq_r = fa.flash_bwd_dq_reference(q, k, v, do, lse_r, delta, causal, scale)
 
-        qp, kp, vp, dop, Dp = q, k, v, do, D
-        if dtype == torch.bfloat16:
-            (qp, kp, vp, dop), Dp = fa._tc_layout(q, k, v, do)
+        qp, kp, vp, dop, Dk, Dvk = fa._layout(q, k, v, do)
         tail = (float(scale), int(causal), fa._DTYPES[dtype], None)
+        widths = (B, H, Lq, Lk, Dk, Dvk)
 
         def nan(L, width):
             return torch.full((B, L, H, width), float("nan")).to(dtype)
 
-        out, lse = nan(Lq, Dp), torch.full((B * H, Lq), float("nan"))
+        out, lse = nan(Lq, Dvk), torch.full((B * H, Lq), float("nan"))
         build.check(lib.pgt_flash_fwd(
             qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            B, H, Lq, Lk, Dp, *fa._strides(qp), *fa._strides(kp), *fa._strides(vp), *tail),
+            *widths, *fa._strides(qp), *fa._strides(kp), *fa._strides(vp), *tail),
             "pgt_flash_fwd")
         dkv = []
         for _ in range(2):
-            dk, dv = nan(Lk, Dp), nan(Lk, Dp)
+            dk, dv = nan(Lk, Dk), nan(Lk, Dvk)
             build.check(lib.pgt_flash_bwd_dkv(
                 qp.data_ptr(), dop.data_ptr(), lse_r.data_ptr(), delta.data_ptr(),
                 kp.data_ptr(), vp.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                B, H, Lq, Lk, Dp, *fa._strides(qp), *fa._strides(dop), *fa._strides(kp),
+                *widths, *fa._strides(qp), *fa._strides(dop), *fa._strides(kp),
                 *fa._strides(vp), *tail), "pgt_flash_bwd_dkv")
             dkv.append((dk, dv))
         dqs = []
         for _ in range(2):
-            dq = nan(Lq, Dp)
+            dq = nan(Lq, Dk)
             build.check(lib.pgt_flash_bwd_dq(
                 qp.data_ptr(), dop.data_ptr(), lse_r.data_ptr(), delta.data_ptr(),
                 kp.data_ptr(), vp.data_ptr(), dq.data_ptr(),
-                B, H, Lq, Lk, Dp, *fa._strides(qp), *fa._strides(dop), *fa._strides(kp),
+                *widths, *fa._strides(qp), *fa._strides(dop), *fa._strides(kp),
                 *fa._strides(vp), *tail), "pgt_flash_bwd_dq")
             dqs.append(dq)
 
-        got = (out[..., :D], lse, dkv[0][0][..., :D], dkv[0][1][..., :D], dqs[0][..., :D])
+        got = (out[..., :Dv], lse, dkv[0][0][..., :D], dkv[0][1][..., :Dv], dqs[0][..., :D])
         want = (out_r, lse_r, dk_r, dv_r, dq_r)
         tol = TOL[dt]
         errs = {}
@@ -168,6 +178,7 @@ def run_cases(lib_path: str) -> dict:
             errs[name] = [float((a - b).abs().max()), int(bad.sum())]
         errs["dkv_same_bits"] = all(torch.equal(x, y) for x, y in zip(dkv[0], dkv[1]))
         errs["dq_same_bits"] = torch.equal(dqs[0], dqs[1])
+        errs["widths"] = [Dk, Dvk]
         results[case] = errs
     return results
 
@@ -191,6 +202,15 @@ def test_emulated_kernels_match_plain_versions(emulated, case):
         max_err, n_bad = errs[name]
         assert n_bad == 0, f"{case} {name}: {n_bad} elements off, max abs err {max_err:.3e}"
     assert errs["dkv_same_bits"], f"{case}: dK/dV differ between two launches"
+
+
+def test_emulated_narrow_v_cases_run_at_their_own_widths(emulated):
+    """The bf16 cases with Dv <= 128 < D <= 192 launch the narrow-V path
+    (q, k at D and v, dO at Dv, unpadded); every other case one width."""
+    for case, (_, _, _, _, D, Dv, _, _, dt) in CASES.items():
+        bf16, w = dt == "bfloat16", max(D, Dv)
+        want = [D, Dv] if bf16 and Dv <= 128 < D <= 192 else [w + (-w) % 8 if bf16 else w] * 2
+        assert emulated[case]["widths"] == want, case
 
 
 def test_emulated_dq_is_bit_identical_across_launches(emulated):
