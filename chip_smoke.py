@@ -1080,7 +1080,7 @@ def phase_parity() -> None:
 
 
 def check_dot_f32(cfg, seed=4) -> None:
-    """``_dot_f32`` on bf16 operands takes the card's native product with
+    """``lm.dot_f32`` on bf16 operands takes the card's native product with
     an f32 output (``torch.mm(..., out_dtype=float32)``), at the main
     path's three shapes: the logits [N, d] x [d, vocab] and the CE head's
     two gradient products, the last with a transposed left operand, as
@@ -1090,7 +1090,7 @@ def check_dot_f32(cfg, seed=4) -> None:
     with room (seen on an H100: 9.7e-5, 4.9e-3 and 1.5e-2 at k = 512, 8192
     and 16384, against limits of 1.8e-2, 6.4e-2 and 7.9e-2; the widened
     f32 product's errors were 8.2e-5, 1.6e-3 and 1.5e-3)."""
-    from pygrid_tpu_torch.models import transformer
+    from pygrid_tpu_torch.models import lm
 
     N = 8 * 4 * cfg.max_len  # K clients x B sequences x L tokens
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1100,7 +1100,7 @@ def check_dot_f32(cfg, seed=4) -> None:
         a = torch.randn((k, m) if t else (m, k), generator=g, device="cuda")
         a = (a.T if t else a).to(torch.bfloat16)
         b = torch.randn((k, n), generator=g, device="cuda").to(torch.bfloat16)
-        got = transformer._dot_f32(a, b)
+        got = lm.dot_f32(a, b)
         exact = a.double() @ b.double()
         f32_err = float((a.float() @ b.float() - exact).abs().max())
         torch.cuda.synchronize()

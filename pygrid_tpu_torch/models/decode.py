@@ -39,13 +39,8 @@ import torch
 import torch.nn.functional as F
 
 from pygrid_tpu_torch.device import resolve
-from pygrid_tpu_torch.models.transformer import (
-    PARAMS_PER_LAYER,
-    TransformerConfig,
-    _cast,
-    _dtype,
-    _ln,
-)
+from pygrid_tpu_torch.models.lm import cast, resolve_dtype
+from pygrid_tpu_torch.models.transformer import PARAMS_PER_LAYER, TransformerConfig, layer_norm
 from pygrid_tpu_torch.utils import prng
 
 
@@ -95,22 +90,22 @@ def cast_params(params: Sequence[torch.Tensor], compute_dtype: Any) -> dict | No
     folds the reference's casts away; eager PyTorch would not). The cast
     is the same one, so the numerics do not change. None without a
     compute dtype."""
-    cd = _dtype(compute_dtype)
+    cd = resolve_dtype(compute_dtype)
     if cd is None:
         return None
-    return {id(p): (p, _cast(p, cd)) for p in params}
+    return {id(p): (p, cast(p, cd)) for p in params}
 
 
 def _caster(compute_dtype: Any, cast_cache: dict | None):
-    cd = _dtype(compute_dtype)
+    cd = resolve_dtype(compute_dtype)
     if cd is None:
         return lambda x: x
     if not cast_cache:
-        return lambda x: _cast(x, cd)
+        return lambda x: cast(x, cd)
 
     def c(x):
         hit = cast_cache.get(id(x))
-        return hit[1] if hit is not None and hit[0] is x else _cast(x, cd)
+        return hit[1] if hit is not None and hit[0] is x else cast(x, cd)
 
     return c
 
@@ -214,10 +209,10 @@ def _block(h, layer_params, c, attn):
     receives the ln1 output and the cast projection weights and returns
     the attention result [..., d_model]."""
     (ln1_s, ln1_b, wq, wk, wv, wo, ln2_s, ln2_b, w1, b1, w2, b2) = layer_params
-    x = c(_ln(h, ln1_s, ln1_b))
+    x = c(layer_norm(h, ln1_s, ln1_b))
     a = attn(x, c(wq), c(wk), c(wv))
     h = h + _mm(c(a), c(wo))
-    x = c(_ln(h, ln2_s, ln2_b))
+    x = c(layer_norm(h, ln2_s, ln2_b))
     mlp = F.gelu(_mm(x, c(w1)) + c(b1), approximate="tanh")
     return h + _mm(c(mlp), c(w2)) + c(b2)
 
@@ -245,7 +240,7 @@ def init_cache(
     dh = cfg.d_model // cfg.n_heads
     shape = (cfg.n_layers, batch, cfg.max_len, cfg.n_heads, dh)
     dev = resolve(device)
-    dt = _dtype(dtype)
+    dt = resolve_dtype(dtype)
     # zeros, never empty: a masked column has p == 0, and 0 * NaN from
     # uninitialised memory would leak into p @ v
     return KVCache(
@@ -293,7 +288,7 @@ def decode_step(
 
         h = _block(h, params[idx: idx + PARAMS_PER_LAYER], c, attn)
         idx += PARAMS_PER_LAYER
-    h = _ln(h, params[idx], params[idx + 1])
+    h = layer_norm(h, params[idx], params[idx + 1])
     logits = _logits(c(h), c(embed))
     return logits, KVCache(k=cache.k, v=cache.v, pos=t + 1)
 
@@ -338,7 +333,7 @@ def prefill(
 
         h = _block(h, params[idx: idx + PARAMS_PER_LAYER], c, attn)
         idx += PARAMS_PER_LAYER
-    h = _ln(h[:, -1], params[idx], params[idx + 1])  # last position only
+    h = layer_norm(h[:, -1], params[idx], params[idx + 1])  # last position only
     logits = _logits(c(h), c(embed))
     return logits, KVCache(k=cache.k, v=cache.v, pos=t0 + P)
 
@@ -367,7 +362,7 @@ def init_slot_cache(
     dh = cfg.d_model // cfg.n_heads
     shape = (cfg.n_layers, slots, cfg.max_len, cfg.n_heads, dh)
     dev = resolve(device)
-    dt = _dtype(dtype)
+    dt = resolve_dtype(dtype)
     return SlotKVCache(
         k=torch.zeros(shape, dtype=dt, device=dev),
         v=torch.zeros(shape, dtype=dt, device=dev),
@@ -423,7 +418,7 @@ def prefill_slot(
         h = _block(h, params[idx: idx + PARAMS_PER_LAYER], c, attn)
         idx += PARAMS_PER_LAYER
     h_last = h[_clip(length - 1, P)]
-    h_last = _ln(h_last, params[idx], params[idx + 1])
+    h_last = layer_norm(h_last, params[idx], params[idx + 1])
     logits = _logits(c(h_last)[None], c(embed))[0]
     _set_pos(cache.pos, slot, length)
     return logits, cache
@@ -478,7 +473,7 @@ def decode_step_slots(
 
         h = _block(h, params[idx: idx + PARAMS_PER_LAYER], c, attn)
         idx += PARAMS_PER_LAYER
-    h = _ln(h, params[idx], params[idx + 1])
+    h = layer_norm(h, params[idx], params[idx + 1])
     logits = _logits(c(h), c(embed))
     cache.pos[:w] += 1
     return logits, cache
@@ -519,7 +514,7 @@ def init_paged_cache(
     dh = cfg.d_model // cfg.n_heads
     shape = (cfg.n_layers, num_blocks, block, cfg.n_heads, dh)
     dev = resolve(device)
-    dt = _dtype(dtype)
+    dt = resolve_dtype(dtype)
     # zeros: the trash block is read (masked) by free slots and frozen rows
     return PagedKVCache(
         k=torch.zeros(shape, dtype=dt, device=dev),
@@ -592,7 +587,7 @@ def paged_prefill_chunk(
         h = _block(h, params[idx: idx + PARAMS_PER_LAYER], c, attn)
         idx += PARAMS_PER_LAYER
     h_last = h[_clip(length - 1 - start, Pb)]
-    h_last = _ln(h_last, params[idx], params[idx + 1])
+    h_last = layer_norm(h_last, params[idx], params[idx + 1])
     logits = _logits(c(h_last)[None], c(embed))[0]
     _set_pos(cache.pos, slot, length)
     return logits, cache
@@ -653,7 +648,7 @@ def paged_decode_step(
 
         h = _block(h, params[idx: idx + PARAMS_PER_LAYER], c, attn)
         idx += PARAMS_PER_LAYER
-    h = _ln(h, params[idx], params[idx + 1])
+    h = layer_norm(h, params[idx], params[idx + 1])
     logits = _logits(c(h), c(embed))
     if active is None:
         cache.pos[:w] += 1
@@ -721,7 +716,7 @@ def paged_verify_chunk(
 
         h = _block(h, params[idx: idx + PARAMS_PER_LAYER], c, attn)
         idx += PARAMS_PER_LAYER
-    h = _ln(h, params[idx], params[idx + 1])
+    h = layer_norm(h, params[idx], params[idx + 1])
     logits = _logits(c(h), c(embed))
     return logits, cache
 

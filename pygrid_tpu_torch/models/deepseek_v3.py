@@ -21,7 +21,8 @@ published ``deepseek_v3`` configurations run them without a query LoRA
 
 The contract is :mod:`.transformer`'s: a flat f32 parameter list,
 ``features``/``apply``/``loss_and_acc`` with the same options, and
-``make_training_step``; ``loss_and_acc`` runs unchanged under
+``make_training_step``, the head, loss and step both take from
+:mod:`.lm`; ``loss_and_acc`` runs unchanged under
 ``parallel.fedavg_fused.make_fused_round``. The router's correction bias
 is a buffer (``bias`` [MoE layers, n_experts]), never a gradient leaf.
 
@@ -37,14 +38,15 @@ experts W_gu [held, d, 2·moe_ff], experts W_down [held, moe_ff, d]``
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Callable, NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from pygrid_tpu_torch.device import resolve
+from pygrid_tpu_torch.models import lm
 from pygrid_tpu_torch.models.moe import topk_expert_layer
-from pygrid_tpu_torch.models.transformer import _CEHead, _cast, _dot_f32, _dtype, _remat
 from pygrid_tpu_torch.parallel.ring_attention import attention
 from pygrid_tpu_torch.utils.profiling import region
 
@@ -177,10 +179,10 @@ def features(
     """Final hidden states [B, L, d] in f32 (post final norm, pre head)."""
     _check(cfg)
     attn_fn = attn_fn or attention
-    cd = _dtype(compute_dtype)
+    cd = lm.resolve_dtype(compute_dtype)
 
     def c(x):
-        return _cast(x, cd)
+        return lm.cast(x, cd)
 
     B, L = tokens.shape
     d, H = cfg.d_model, cfg.n_heads
@@ -223,7 +225,7 @@ def features(
                 shared = _swiglu(x, c(s_gu), c(s_down))
             return h + (routed + shared).view(B, L, d)
 
-    dense_fn, moe_fn = _remat(dense_block, remat), _remat(moe_block, remat)
+    dense_fn, moe_fn = lm.remat_block(dense_block, remat), lm.remat_block(moe_block, remat)
     idx = 1
     for i in range(cfg.n_layers):
         if i < cfg.n_dense:
@@ -245,10 +247,10 @@ def apply(
     bias: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Logits [B, L, vocab] in f32 for int tokens [B, L]; causal."""
-    cd = _dtype(compute_dtype)
     h = features(params, tokens, cfg, attn_fn, remat, compute_dtype, bias)
     B, L, d = h.shape
-    return _dot_f32(_cast(h, cd).reshape(B * L, d), _cast(params[-1], cd).T).reshape(B, L, -1)
+    cd = lm.resolve_dtype(compute_dtype)
+    return lm.logits(h.reshape(B * L, d), params[-1], cd).reshape(B, L, -1)
 
 
 def loss_and_acc(
@@ -262,21 +264,12 @@ def loss_and_acc(
     ce_grad_dtype: Any | None = None,
     bias: torch.Tensor | None = None,
 ):
-    """Token-level CE (int targets y [B, L]) and accuracy. With
-    ``ce_grad_dtype`` the head is :class:`.transformer._CEHead` over the
-    untied head matrix (f32 logits recomputed in its narrow-dtype
+    """Token-level CE (int targets y [B, L]) and accuracy through the
+    untied head (:func:`.lm.head_loss`). With ``ce_grad_dtype`` the head is
+    :class:`.lm.CEHead` (f32 logits recomputed in its narrow-dtype
     backward); without, the plain f32 log-softmax."""
-    if ce_grad_dtype is not None:
-        h = features(params, X, cfg, attn_fn, remat, compute_dtype, bias)
-        N = h.shape[0] * h.shape[1]
-        loss_sum, hit_sum = _CEHead.apply(h.reshape(N, cfg.d_model), params[-1], y.reshape(N),
-                                          _dtype(compute_dtype), _dtype(ce_grad_dtype))
-        return loss_sum / N, hit_sum / N
-    logits = apply(params, X, cfg, attn_fn, remat, compute_dtype, bias)
-    logp = torch.log_softmax(logits, dim=-1)
-    loss = -logp.gather(-1, y[..., None]).mean()
-    acc = (logits.argmax(-1) == y).float().mean()
-    return loss, acc
+    h = features(params, X, cfg, attn_fn, remat, compute_dtype, bias)
+    return lm.head_loss(h, params[-1], y, lm.resolve_dtype(compute_dtype), ce_grad_dtype)
 
 
 def make_training_step(
@@ -289,13 +282,7 @@ def make_training_step(
 ) -> Callable:
     """SGD step: ``(X, y, lr, *params) -> (loss, acc, *new_params)``, f32
     master params with the matmul path in ``compute_dtype``."""
-
-    def training_step(X, y, lr, *params):
-        leaves = [p.detach().requires_grad_() for p in params]
-        loss, acc = loss_and_acc(leaves, X, y, cfg, attn_fn, remat, compute_dtype,
-                                 ce_grad_dtype, bias)
-        grads = torch.autograd.grad(loss, leaves)
-        new_params = [p.detach() - lr * g for p, g in zip(params, grads)]
-        return (loss.detach(), acc.detach(), *new_params)
-
-    return training_step
+    return lm.make_sgd_step(partial(
+        loss_and_acc, cfg=cfg, attn_fn=attn_fn, remat=remat, compute_dtype=compute_dtype,
+        ce_grad_dtype=ce_grad_dtype, bias=bias,
+    ))

@@ -32,9 +32,9 @@ wire, never O(K·|params|).
 A round names its parts for ``torch.profiler``
 (:func:`pygrid_tpu_torch.utils.profiling.region`, no-ops when no profiler
 records): ``pgt.round.forward`` and ``pgt.round.backward`` around every
-loss and its gradient, and in :func:`make_fused_rounds` ``pgt.round``
-around the round and ``pgt.round.update`` around the param mean and the
-master update.
+loss and its gradient, and in the round of :func:`make_fused_round`
+(which :func:`make_fused_rounds` loops) ``pgt.round`` around the round
+and ``pgt.round.update`` around the param mean and the master update.
 """
 
 from __future__ import annotations
@@ -84,19 +84,29 @@ def _sgd_steps(
     return [base + d.to(base.dtype) for base, d in zip(params, deltas)]
 
 
-def _fused_grad_and_metrics(loss_fn, p_k, batched, client_X, client_y):
-    """The gradient-semantics core: the client-mean loss, acc and
-    gradient at the clients' params.
+def _client_step(loss_fn, p, client_X, client_y, lr, local_steps, carry_dtype):
+    """A round's client work from the round-start params ``p``: ``(loss,
+    acc, grads, mean_params)``, the client means of the final local step's
+    pre-update loss, acc and gradient, and the params to update.
 
-    ``p_k``: per-client params (a list of K param lists) when ``batched``,
-    else the shared params. Unbatched, the K client batches merge into
-    one ``[K·B, ...]`` batch and one backward gives the folded gradient;
-    batched, each client's gradient adds into the running mean in turn."""
-    K = client_X.shape[0]
-    if not batched:
+    At ``local_steps == 1`` every client holds ``p``, so the K client
+    batches merge into one ``[K·B, ...]`` batch and one backward gives the
+    folded gradient; ``mean_params`` is ``p``. Above 1, each client runs
+    its first ``local_steps - 1`` steps (:func:`_sgd_steps`), then its
+    gradient adds into the running mean in turn; ``mean_params`` is then
+    an iterator that takes the clients' param mean leaf by leaf as the
+    caller reads it, so that the caller's update range holds that work."""
+    if local_steps == 1:
         X = client_X.reshape((-1,) + tuple(client_X.shape[2:]))
         y = client_y.reshape((-1,) + tuple(client_y.shape[2:]))
-        return _grad(loss_fn, p_k, X, y)
+        loss, acc, g = _grad(loss_fn, p, X, y)
+        return loss, acc, g, p
+    K = client_X.shape[0]
+    p_k = [
+        _sgd_steps(loss_fn, p, client_X[i], client_y[i], lr, local_steps - 1,
+                   carry_dtype=carry_dtype)
+        for i in range(K)
+    ]
     loss_sum = acc_sum = 0.0
     g_sum = None
     for i in range(K):
@@ -104,7 +114,32 @@ def _fused_grad_and_metrics(loss_fn, p_k, batched, client_X, client_y):
         loss_sum = loss_sum + loss
         acc_sum = acc_sum + acc
         g_sum = list(g) if g_sum is None else [s + gi for s, gi in zip(g_sum, g)]
-    return loss_sum / K, acc_sum / K, [s / K for s in g_sum]
+    mean_p = (torch.stack(ps).mean(0) for ps in zip(*p_k))
+    return loss_sum / K, acc_sum / K, [s / K for s in g_sum], mean_p
+
+
+def make_fused_round(
+    loss_fn: Callable,
+    local_steps: int = 1,
+    carry_dtype: torch.dtype | None = None,
+) -> Callable:
+    """A single fused round with :func:`fedavg.make_round`'s contract:
+    ``round_fn(params, client_X, client_y, lr) -> (new_params,
+    mean_loss, mean_acc)``; :func:`make_fused_rounds` loops it."""
+    if local_steps < 1:
+        raise ValueError("local_steps must be >= 1")
+
+    def one_round(params, client_X, client_y, lr):
+        p = [t.detach() for t in params]
+        with region("pgt.round"):
+            loss, acc, g, mean_p = _client_step(
+                loss_fn, p, client_X, client_y, lr, local_steps, carry_dtype
+            )
+            with region("pgt.round.update"):
+                new_p = [mp.detach() - lr * gi for mp, gi in zip(mean_p, g)]
+        return new_p, loss, acc
+
+    return one_round
 
 
 def make_fused_rounds(
@@ -126,36 +161,10 @@ def make_fused_rounds(
     ``carry_dtype`` (e.g. ``torch.bfloat16``) carries the per-client
     deltas between local steps in a narrower dtype; it only touches
     ``local_steps > 1``."""
-    if local_steps < 1:
-        raise ValueError("local_steps must be >= 1")
-
-    def one_round(p, client_X, client_y, lr):
-        with region("pgt.round"):
-            if local_steps == 1:
-                p_k, batched = p, False
-            else:
-                p_k = [
-                    _sgd_steps(
-                        loss_fn, p, client_X[i], client_y[i], lr,
-                        local_steps - 1, carry_dtype=carry_dtype,
-                    )
-                    for i in range(client_X.shape[0])
-                ]
-                batched = True
-            loss, acc, g = _fused_grad_and_metrics(
-                loss_fn, p_k, batched, client_X, client_y
-            )
-            with region("pgt.round.update"):
-                if batched:
-                    mean_p = [torch.stack(ps).mean(0) for ps in zip(*p_k)]
-                else:
-                    mean_p = p_k
-                new_p = [mp.detach() - lr * gi for mp, gi in zip(mean_p, g)]
-        return new_p, loss, acc
+    one_round = make_fused_round(loss_fn, local_steps, carry_dtype)
 
     def rounds_fn(params, client_X, client_y, lr):
-        p = [t.detach() for t in params]
-        losses, accs = [], []
+        p, losses, accs = params, [], []
         for _ in range(n_rounds):
             p, loss, acc = one_round(p, client_X, client_y, lr)
             losses.append(loss)
@@ -187,44 +196,17 @@ def make_sharded_fused_round(
     def round_fn(params, client_X, client_y, lr):
         X, y = C.shard(mesh, axis, client_X, client_y)
         p = [t.detach() for t in params]
-        if local_steps > 1:
-            p_k = [
-                _sgd_steps(loss_fn, p, X[i], y[i], lr, local_steps - 1, carry_dtype=carry_dtype)
-                for i in range(X.shape[0])
-            ]
-            batched = True
-        else:
-            p_k, batched = p, False
-        loss, acc, g = _fused_grad_and_metrics(loss_fn, p_k, batched, X, y)
+        loss, acc, g, mean_p = _client_step(loss_fn, p, X, y, lr, local_steps, carry_dtype)
         local = list(g) + [loss, acc]
-        if batched:
-            local += [torch.stack(ps).mean(0) for ps in zip(*p_k)]
+        if local_steps > 1:
+            local += list(mean_p)
         mean = C.pmean_many(local, mesh, axis)
         n = len(p)
         # copies: a view would keep the whole all-reduced buffer (every
         # gradient) alive for as long as the caller keeps the loss
         g, (loss, acc) = mean[:n], (t.clone() for t in mean[n: n + 2])
-        mean_p = mean[n + 2:] if batched else p
+        mean_p = mean[n + 2:] if local_steps > 1 else p
         new_p = [mp - lr * gi for mp, gi in zip(mean_p, g)]
         return new_p, loss, acc
-
-    return round_fn
-
-
-def make_fused_round(
-    loss_fn: Callable,
-    local_steps: int = 1,
-    carry_dtype: torch.dtype | None = None,
-) -> Callable:
-    """A single fused round with :func:`fedavg.make_round`'s contract:
-    ``round_fn(params, client_X, client_y, lr) -> (new_params,
-    mean_loss, mean_acc)``."""
-    rounds = make_fused_rounds(
-        loss_fn, n_rounds=1, local_steps=local_steps, carry_dtype=carry_dtype,
-    )
-
-    def round_fn(params, client_X, client_y, lr):
-        final, losses, accs = rounds(params, client_X, client_y, lr)
-        return final, losses[0], accs[0]
 
     return round_fn

@@ -35,7 +35,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from pygrid_tpu_torch.models.transformer import _dtype
+from pygrid_tpu_torch.models.lm import resolve_dtype
 
 #: default KV block size in tokens (PagedAttention-style page); a
 #: bucketed power of two, clamped to the model's max_len at resolution
@@ -172,7 +172,7 @@ def block_bytes(cfg, block: int, dtype: Any, extra_layers: int = 0) -> int:
     dh = cfg.d_model // cfg.n_heads
     return int(
         2 * (cfg.n_layers + extra_layers) * block * cfg.n_heads * dh
-        * _dtype(dtype).itemsize
+        * resolve_dtype(dtype).itemsize
     )
 
 

@@ -137,22 +137,35 @@ def test_mlp_scanned_rounds_match_jax(local_steps, fold):
     _close(tp, jp)
 
 
-@pytest.mark.parametrize("local_steps", [1, 3])
-def test_fused_matches_opaque_mlp(local_steps):
+@pytest.mark.parametrize(
+    "local_steps,n_rounds",
+    [pytest.param(1, 3, id="1"), pytest.param(3, 3, id="3"),
+     pytest.param(1, 1, id="1-one_round"), pytest.param(3, 1, id="3-one_round")],
+)
+def test_fused_matches_opaque_mlp(local_steps, n_rounds):
     """Port against port: the fused reassociation equals the opaque
-    per-client builder (mirrors tests/unit/test_fedavg_fused.py)."""
+    per-client builder (mirrors tests/unit/test_fedavg_fused.py). At one
+    round, ``make_fused_round`` returns what ``make_fused_rounds`` does,
+    its loss and accuracy 0-dim."""
     _, params, X, y = _mlp_setup((64, 32, 10), 8, 16, seed=3)
     X, y = torch.from_numpy(X), torch.from_numpy(y)
     p1, l1, a1 = make_scanned_rounds(
-        tmlp.training_step, n_rounds=3, local_steps=local_steps
+        tmlp.training_step, n_rounds=n_rounds, local_steps=local_steps
     )(params, X, y, 0.2)
     p2, l2, a2 = make_fused_rounds(
-        tmlp.loss_and_acc, n_rounds=3, local_steps=local_steps
+        tmlp.loss_and_acc, n_rounds=n_rounds, local_steps=local_steps
     )(params, X, y, 0.2)
     for a, b in zip(p1, p2):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=2e-5)
     np.testing.assert_allclose(l1.numpy(), l2.numpy(), rtol=1e-4, atol=1e-6)
     np.testing.assert_allclose(a1.numpy(), a2.numpy(), rtol=1e-4, atol=1e-6)
+    if n_rounds == 1:
+        p3, l3, a3 = make_fused_round(tmlp.loss_and_acc, local_steps=local_steps)(
+            params, X, y, 0.2
+        )
+        assert len(p3) == len(p2) and all(torch.equal(a, b) for a, b in zip(p3, p2))
+        assert l3.dim() == a3.dim() == 0
+        assert torch.equal(l3, l2[0]) and torch.equal(a3, a2[0])
 
 
 def test_fused_round_and_run_rounds_learn():

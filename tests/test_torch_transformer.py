@@ -11,7 +11,9 @@ are compared at atol 1/N. The bf16 paths (compute dtype, CE backward) are
 held at bf16 resolution: loss rtol 1e-2, gradients atol 5e-3.
 """
 
+import ast
 from functools import partial
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -23,6 +25,8 @@ import jax.numpy as jnp
 from pygrid_tpu.models import transformer as jtf
 from pygrid_tpu.parallel.pallas_attention import flash_attention as jax_flash
 from pygrid_tpu_torch import convert
+from pygrid_tpu_torch import models as models_pkg
+from pygrid_tpu_torch.models import lm
 from pygrid_tpu_torch.models import transformer as ttf
 from pygrid_tpu_torch.parallel import flash_attention as fa
 
@@ -103,7 +107,7 @@ _BF16_KWS = {
 }
 
 
-# odd vocabularies run the CE head at its padded width (ttf.VOCAB_ALIGN);
+# odd vocabularies run the CE head at its padded width (lm.VOCAB_ALIGN);
 # the embedding's gradient must still come back [V, d]
 @pytest.mark.parametrize(
     "kw, vocab",
@@ -140,17 +144,17 @@ def test_ce_head_pad_columns_never_count(vocab):
     ref_loss = -torch.log_softmax(logits, -1).gather(1, y1[:, None]).sum()
     ref_hits = (logits.argmax(-1) == y1).float().sum()
 
-    ttf.reset_head_counts()
-    loss, hits = ttf._CEHead.apply(h2, embed, y1, None, torch.float32)
-    pad = -vocab % ttf.VOCAB_ALIGN
-    assert ttf.head_counts() == {
+    lm.reset_head_counts()
+    loss, hits = lm.CEHead.apply(h2, embed, y1, None, torch.float32)
+    pad = -vocab % lm.VOCAB_ALIGN
+    assert lm.head_counts() == {
         "calls": 1, "padded_calls": int(pad > 0), "pad_columns": pad
     }
     torch.testing.assert_close(loss, ref_loss, rtol=1e-6, atol=0)
     assert float(hits) == float(ref_hits)
 
     leaf = embed.clone().requires_grad_()
-    loss, _ = ttf._CEHead.apply(h2, leaf, y1, None, torch.float32)
+    loss, _ = lm.CEHead.apply(h2, leaf, y1, None, torch.float32)
     (grad,) = torch.autograd.grad(loss, leaf)
     e = embed.clone().requires_grad_()
     (ref_grad,) = torch.autograd.grad(
@@ -222,3 +226,43 @@ def test_init_layout_and_generator():
     assert [tuple(p.shape) for p in p1] == ttf.param_shapes(TCFG)
     for a, b in zip(p1, p2):
         assert torch.equal(a, b)
+
+
+def _private_reaches(path: Path) -> list[str]:
+    """Each ``_``-prefixed name that the module at ``path`` takes from
+    another module of the models package: imported by name, or read as an
+    attribute of a sibling module it imported."""
+    pkg = "pygrid_tpu_torch.models"
+    siblings = {q.stem for q in path.parent.glob("*.py")} - {"__init__", path.stem}
+    tree = ast.parse(path.read_text())
+    bound, found = set(), []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            mod = node.module or ""
+            ours = node.level > 0 or mod == pkg or mod.startswith(pkg + ".")
+            if not ours:
+                continue
+            for a in node.names:
+                if mod in (pkg, "") and a.name in siblings:
+                    bound.add(a.asname or a.name)
+                elif a.name.startswith("_"):
+                    found.append(f"{path.name}:{node.lineno} imports {a.name} from {mod}")
+        elif isinstance(node, ast.Import):
+            for a in node.names:
+                if a.name.startswith(pkg + ".") and a.asname:
+                    bound.add(a.asname)
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name)
+                and node.value.id in bound and node.attr.startswith("_")
+                and not node.attr.startswith("__")):
+            found.append(f"{path.name}:{node.lineno} reads {node.value.id}.{node.attr}")
+    return found
+
+
+def test_no_model_reaches_into_another_models_private_names():
+    """What two decoders share lives under a public name (``models/lm.py``
+    holds the head, the loss and the step), never as a private name that
+    one model file takes from another."""
+    paths = sorted(Path(models_pkg.__file__).parent.glob("*.py"))
+    assert {p.stem for p in paths} >= {"lm", "transformer", "deepseek_v3", "decode"}
+    assert [f for p in paths for f in _private_reaches(p)] == []
