@@ -31,9 +31,16 @@ the script exits non-zero:
               slices held to the plain versions, and its device time beside
               the bound of its true work (benchmark/work/mla_flash.py's
               count), printed only;
+   moe rows — the expert layer's six row kernels (csrc/moe_rows.cu) at
+              the Moonlight cell's shapes (T 32,768, top-6 of 64, 8 held,
+              d 2,048, f 1,408, bf16) against their plain versions on the
+              held rows, then each one's time beside its bound (the bytes
+              it moves at the held rows) and its plain version's;
 4. rounds   — one FedAvg round of the benchmark's Moonlight cell, which
               must launch each flash kernel once a layer, every launch
-              narrow-V; then the main path: fused FedAvg rounds of the
+              narrow-V, and each row kernel once per expert layer and
+              direction, over a held share of the dispatch rows between
+              0.10 and 0.16; then the main path: fused FedAvg rounds of the
               federated transformer at full width (bench_fed_transformer's
               config), with each kernel's launches counted;
 5. small    — one opaque make_round round, one local_steps=2 fused round
@@ -102,7 +109,7 @@ the script exits non-zero:
               near tie of generate's logits (top-2 gap <= 1e-4 x max
               |logit|); (e) the first prefill's and decode step's f32 logits
               against the CPU within 1e-4 and the PRNG's bits equal to the
-              CPU's. The path launches none of the four kernels.
+              CPU's. The path launches none of the hand-written kernels.
 15. grid    — four port nodes (alice, bob, charlie, dan), each on its own
               loop thread on 127.0.0.1 with its tensors on the card, driven
               only through the port's clients over HTTP and WebSocket: the
@@ -798,17 +805,110 @@ def phase_timing_narrow_v() -> None:
               f"{dev_p / dev:.2f}x")
 
 
+# the expert layer of the Moonlight cell: T tokens a round, E routed
+# experts of which the first HELD are held here, top-k, d_model, moe_ff
+MOE_ROWS_SHAPE = dict(T=32768, E=64, held=8, k=6, d=2048, f=1408)
+
+
+def phase_moe_rows() -> tuple[dict, dict]:
+    """The expert layer's six row kernels at MOE_ROWS_SHAPE in bf16 on a
+    routed batch (random tokens, a router at the model's scale, bias 0, the
+    cell's routed scale; random rows at the dispatch bound M for the
+    kernels that read the layer's intermediate rows), each against its
+    plain version on the held rows (rows before offs[-1]; the per-token
+    outputs everywhere), then its time by CUDA events and by device time
+    beside its bound (the bytes it moves at the held rows over 3.35 TB/s)
+    and its plain version's time (which runs over all M rows). Returns
+    ({kernel: max abs error}, {kernel: timing})."""
+    from pygrid_tpu_torch.models import moe
+
+    c = MOE_ROWS_SHAPE
+    T, k, d, f = c["T"], c["k"], c["d"], c["f"]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x32 = torch.randn(T, d, generator=g, device="cuda")
+    wg = torch.randn(c["E"], d, generator=g, device="cuda") * d ** -0.5
+    sel, w = moe.route_topk(x32, wg, torch.zeros(c["E"], device="cuda"), k, 2.446)
+    order, offs, pos, held = moe.dispatch(sel, 0, c["held"])
+    M, n, x = order.shape[0], int(offs[-1]), x32.bfloat16()
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").bfloat16()
+
+    h, o, da, dxs, gy = rnd(M, 2 * f), rnd(M, d), rnd(M, f), rnd(M, d), rnd(T, d)
+    dws = torch.randn(M, generator=g, device="cuda")
+    calls = {  # kernel: (its call, its plain version's, the output rows compared)
+        "moe_gather": (lambda: moe.gather_rows(x, order, offs, k),
+                       lambda: moe.gather_reference(x, order, k), n),
+        "moe_swiglu_fwd": (lambda: moe.swiglu(h, offs), lambda: moe.swiglu_reference(h), n),
+        "moe_combine_fwd": (lambda: moe.combine(o, w, pos, held),
+                            lambda: moe.combine_reference(o, w, pos, held), T),
+        "moe_rows_bwd": (lambda: moe.rows_bwd(gy, o, w, order, offs, k),
+                         lambda: moe.rows_bwd_reference(gy, o, w, order, k), n),
+        "moe_swiglu_bwd": (lambda: moe.swiglu_bwd(h, da, offs),
+                           lambda: moe.swiglu_bwd_reference(h, da), n),
+        "moe_combine_bwd": (lambda: moe.combine_bwd(dxs, dws, pos, held),
+                            lambda: moe.combine_bwd_reference(dxs, dws, pos, held), T),
+    }
+    el, tk = 2, T * k
+    nbytes = {  # each input byte read once, each output byte written once, at the held rows
+        "moe_gather": n * 8 + 2 * n * d * el,
+        "moe_swiglu_fwd": 3 * n * f * el,
+        "moe_combine_fwd": tk * (4 + 8 + 1) + n * d * el + T * d * el,
+        "moe_rows_bwd": n * (8 + 4) + 3 * n * d * el + n * 4,
+        "moe_swiglu_bwd": 5 * n * f * el,
+        "moe_combine_bwd": tk * (8 + 1) + n * (d * el + 4) + T * d * el + tk * 4,
+    }
+    print(f"[moe rows] {card_line()}; T {T}, top-{k} of {c['E']}, {c['held']} held, d {d}, "
+          f"f {f}, bf16: {n} held rows of the dispatch bound's {M} ({100 * n / M:.2f} %)")
+    moe.reset_launch_counts()
+    errs, timing = {}, {}
+    for name, (kernel, plain, out_rows) in calls.items():
+        got, want = kernel(), plain()
+        got, want = (got if isinstance(got, tuple) else (got,)), (
+            want if isinstance(want, tuple) else (want,))
+        torch.cuda.synchronize()
+        err = 0.0
+        for a, b in zip(got, want):
+            a, b = a[:out_rows].float(), b[:out_rows].float()
+            check(bool(torch.isfinite(a).all()), f"moe rows: {name} wrote a non-finite value")
+            bad = ((a - b).abs() > 1e-2 + 1e-2 * b.abs()).sum()
+            check(int(bad) == 0, f"moe rows: {name}: {int(bad)} entries off its plain version")
+            err = max(err, float((a - b).abs().max()))
+        errs[name] = err
+        del got, want
+        bound = nbytes[name] / PEAK_BYTES * 1e3
+        ms, dev = time_ms(kernel), device_ms(kernel)
+        plain_ms = time_ms(plain, iters=5)
+        timing[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "bytes",
+                        "library_ms": None}
+        print(f"[timing moe rows] {name}: kernel {ms:.4f} ms (device time {dev:.4f} ms), bound "
+              f"{bound:.4f} ms (bytes: {nbytes[name] / 1e6:.1f} MB at the held rows), "
+              f"{dev / bound:.2f}x the bound ({nbytes[name] / dev / 1e6:.0f} GB/s), plain "
+              f"{plain_ms:.4f} ms over all {M} rows ({plain_ms / ms:.1f}x); max abs error "
+              f"against it {err:.3e}")
+    counts = moe.launch_counts()
+    check(all(v > 0 for v in counts.values()), f"moe rows: a kernel never launched: {counts}")
+    del x32, x, w, order, offs, pos, held, gy, h, o, da, dxs, dws
+    torch.cuda.empty_cache()
+    return errs, timing
+
+
 # the Moonlight cell of the benchmark, whose every attention takes the
 # narrow-V path
 MOONLIGHT_CELL = "moonlight-ep8-fedavg-k4-l8192"
 
 
-def phase_rounds_moonlight() -> None:
+def phase_rounds_moonlight() -> dict:
     """One FedAvg round of MOONLIGHT_CELL as the benchmark builds it (its
     configuration, traffic and port loss), after one round of warm-up,
     with the flash kernels' launches counted: one of each kernel per
-    layer, every one on the narrow-V path."""
+    layer, every one on the narrow-V path; and the expert layer's row
+    kernels: each once per expert layer and direction it runs in (the
+    gather and the SwiGLU forward in both, the backward again), with
+    held_assignments / bound_rows, the share of the dispatch rows they
+    touch, between 0.10 and 0.16. Returns the row kernels' launches."""
     from benchmark import harness, traffic
+    from pygrid_tpu_torch.models import moe
     from pygrid_tpu_torch.parallel import flash_attention as fa, make_fused_round
 
     root = Path(__file__).resolve().parent
@@ -823,6 +923,8 @@ def phase_rounds_moonlight() -> None:
     round_fn(params, X, y, cell.spec["lr"])
     torch.cuda.synchronize()
     fa.reset_launch_counts()
+    moe.reset_launch_counts()
+    moe.reset_moe_counts()
     round_fn(params, X, y, cell.spec["lr"])
     torch.cuda.synchronize()
     counts, narrow_v = fa.launch_counts(), fa.narrow_v_counts()
@@ -832,8 +934,18 @@ def phase_rounds_moonlight() -> None:
           f"expected {layers} of each, all narrow-V")
     print(f"[rounds] {MOONLIGHT_CELL}: one round launched {counts}, narrow-V {narrow_v} "
           f"({layers} layers)")
+    rows, n_moe = moe.launch_counts(), layers - cell.config["port"]["n_dense"]
+    want = {name: (2 if name in ("moe_gather", "moe_swiglu_fwd") else 1) * n_moe
+            for name in moe.ROW_KERNELS}
+    mc = moe.moe_counts()
+    share = mc["held_assignments"] / mc["bound_rows"]
+    print(f"[rounds] {MOONLIGHT_CELL}: row kernels {rows} ({n_moe} expert layers); "
+          f"moe_counts {mc}: held_assignments / bound_rows {share:.4f}")
+    check(rows == want, f"{MOONLIGHT_CELL}: row kernels launched {rows}, expected {want}")
+    check(0.10 <= share <= 0.16, f"{MOONLIGHT_CELL}: held share of the dispatch rows {share}")
     del params, X, y, round_fn
     torch.cuda.empty_cache()
+    return rows
 
 
 # --------------------------------------------------------------------------
@@ -850,6 +962,11 @@ KERNELS = {
                      "pygrid_tpu/parallel/pallas_attention.py:355"),
     "ring_matmul": ("pygrid_tpu_torch/csrc/ring_matmul.cu",
                     "pygrid_tpu/smpc/pallas_kernels.py:66"),
+    # the expert layer's row passes (models/moe.py): the top-k layer has no
+    # JAX counterpart, so these replace no TPU kernel
+    **{name: ("pygrid_tpu_torch/csrc/moe_rows.cu", "none")
+       for name in ("moe_gather", "moe_swiglu_fwd", "moe_combine_fwd", "moe_rows_bwd",
+                    "moe_swiglu_bwd", "moe_combine_bwd")},
 }
 
 
@@ -873,10 +990,11 @@ def transformer_setup(cfg, K, B, device, seed=0):
 
 
 def _counters():
+    from pygrid_tpu_torch.models import moe
     from pygrid_tpu_torch.parallel import flash_attention as fa
     from pygrid_tpu_torch.smpc import ring_matmul as rm
 
-    return {"flash": fa, "ring": rm}
+    return {"flash": fa, "ring": rm, "moe": moe}
 
 
 def counted(fn, path="flash"):
@@ -2396,7 +2514,7 @@ def phase_serving(device="cuda") -> float:
     torch.cuda.synchronize()
     launches = {k: n for c in counters.values() for k, n in c.launch_counts().items()}
     check(not any(launches.values()), f"the serving path launched hand-written kernels: {launches}")
-    print("[serving] the serving path launched none of the four kernels")
+    print("[serving] the serving path launched none of the hand-written kernels")
     return engine_tps
 
 
@@ -3620,7 +3738,8 @@ def phase_mesh(device="cuda", rank=0, world=1, store_dir=None) -> dict:
         if store_dir is None:
             shutil.rmtree(tmp, ignore_errors=True)
     for name in KERNELS:
-        check(device != "cuda" or total.get(name, 0) > 0,
+        # the mesh path's MoE is the top-1 layer: no row kernel
+        check(device != "cuda" or KERNELS[name][1] == "none" or total.get(name, 0) > 0,
               f"mesh: {name} was not launched on the mesh path")
     print(f"[mesh] phase mesh {time.perf_counter() - t0:.1f} s; launches on the mesh path "
           f"(rank {rank}) {total}")
@@ -4188,6 +4307,7 @@ def _lint_bounds() -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from pygrid_tpu_torch.analysis.checkers.gl5_cuda import SMEM_LIMIT, launch_model
+    from pygrid_tpu_torch.models import moe
     from pygrid_tpu_torch.parallel import flash_attention as fa
     from pygrid_tpu_torch.smpc import ring_matmul as rm
 
@@ -4220,6 +4340,27 @@ def _lint_bounds() -> None:
     a = torch.randint(-2**62, 2**62, (3, 100, 70), device="cuda", generator=g)
     b = torch.randint(-2**62, 2**62, (3, 70, 90), device="cuda", generator=g)
     runs.append((None, lambda: rm.ring_matmul_kernel(a, b)))
+    for dtype in (torch.bfloat16, torch.float32):  # the six row kernels in each dtype
+        T, E, k, held, d, f = 64, 16, 4, 4, 64, 32
+        x32 = torch.randn(T, d, device="cuda", generator=g)
+        wg = torch.randn(E, d, device="cuda", generator=g)
+        sel, w = moe.route_topk(x32, wg, torch.zeros(E, device="cuda"), k, 1.0)
+        order, offs, pos, mask = moe.dispatch(sel, 0, held)
+        M = order.shape[0]
+        x, h, o, da, gy = (torch.randn(*shape, device="cuda", generator=g).to(dtype) for shape in
+                           ((T, d), (M, 2 * f), (M, d), (M, f), (T, d)))
+        dws = torch.randn(M, device="cuda", generator=g)
+
+        def rows(x=x, h=h, o=o, da=da, gy=gy, dws=dws, w=w, order=order, offs=offs, pos=pos,
+                 mask=mask, k=k):
+            moe.gather_rows(x, order, offs, k)
+            moe.swiglu(h, offs)
+            moe.combine(o, w, pos, mask)
+            moe.rows_bwd(gy, o, w, order, offs, k)
+            moe.swiglu_bwd(h, da, offs)
+            moe.combine_bwd(o, dws, pos, mask)
+
+        runs.append((None, rows))
 
     def capture(call) -> dict:
         """One profiler session over ``call``: each pgt kernel's first
@@ -4439,8 +4580,12 @@ def main() -> int:
     timing = phase_timing()
     phase_timing_wide()
     phase_timing_narrow_v()
-    phase_rounds_moonlight()
+    moe_errs, moe_timing = phase_moe_rows()
+    errs.update(moe_errs)
+    timing.update(moe_timing)
+    moe_launches = phase_rounds_moonlight()
     launches, params = phase_rounds()
+    launches.update(moe_launches)
     phase_small()
     phase_parity()
     errs["ring_matmul"] = phase_ring_kernel()

@@ -87,7 +87,7 @@ PROGRAMS = (
     ProgramEntry(
         "torch.autograd.Function.forward/backward",
         "parallel/flash_attention.py:335, models/lm.py:141, "
-        "models/moe.py:246, parallel/collectives.py",
+        "models/moe.py:428, parallel/collectives.py",
         "jax.custom_vjp, pygrid_tpu/parallel/pallas_attention.py:222, "
         "pygrid_tpu/models/transformer.py:224; the lax collectives' "
         "transposes under jax.jit(sharded), pygrid_tpu/parallel/"

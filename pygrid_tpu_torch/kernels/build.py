@@ -59,6 +59,18 @@ LIBRARIES: dict[str, tuple[str, dict[str, list]]] = {
         # a, b, c; B1, B2, M, N, K; four int64 strides of each operand
         {"pgt_ring_matmul": [_P] * 3 + [_I] * 5 + [_L] * 12 + [_P]},
     ),
+    "moe_rows": (
+        "moe_rows.cu",
+        # tensors; sizes, is_bf16 and the grid's blocks; the stream
+        {
+            "pgt_moe_gather": [_P] * 4 + [_I] * 5 + [_P],
+            "pgt_moe_swiglu_fwd": [_P] * 3 + [_I] * 4 + [_P],
+            "pgt_moe_combine_fwd": [_P] * 5 + [_I] * 5 + [_P],
+            "pgt_moe_rows_bwd": [_P] * 7 + [_I] * 5 + [_P],
+            "pgt_moe_swiglu_bwd": [_P] * 4 + [_I] * 4 + [_P],
+            "pgt_moe_combine_bwd": [_P] * 6 + [_I] * 5 + [_P],
+        },
+    ),
 }
 
 _lock = threading.Lock()

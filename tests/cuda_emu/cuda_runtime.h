@@ -74,6 +74,11 @@ inline float __int_as_float(int x) {
   memcpy(&f, &x, 4);
   return f;
 }
+inline int __float_as_int(float f) {
+  int x;
+  memcpy(&x, &f, 4);
+  return x;
+}
 
 // byte n of the result is byte (s >> 4n) & 7 of the 8 bytes {y, x}, x lowest
 inline unsigned __byte_perm(unsigned x, unsigned y, unsigned s) {

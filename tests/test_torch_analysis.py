@@ -358,7 +358,7 @@ def test_gl5_mutated_launch_fires_at_its_line(tmp_path, case):
 
 def test_gl5_resolves_the_real_launches():
     launches = {(lc.name, lc.launcher): lc for lc in launch_model(str(CSRC))}
-    assert len(launches) == 19
+    assert len(launches) == 31
     fwd = launches[("flash_fwd_tc_kernel<128>", "launch_fwd_tc")]
     assert (fwd.block, fwd.threads, fwd.smem()) == (128, 128, 2 * (64 + 4 * 64) * 136)
     ring = launches[("ring_matmul_tc_kernel", "pgt_ring_matmul")]
@@ -373,6 +373,9 @@ def test_gl5_resolves_the_real_launches():
     assert dkv.smem(D=192) == 2 * (64 + 2 * 16) * (200 + 136) + 4 * 4 * 16
     f32 = launches[("flash_fwd_kernel", "launch_fwd")]
     assert f32.smem(D=64) == 4 * (3 * 64 * 65 + 64 * 65 + 3 * 64)
+    rows = [lc for (name, _), lc in launches.items() if name.startswith("moe_")]
+    assert len(rows) == 12  # six row kernels, each in bf16 and f32
+    assert {(lc.block, lc.threads, lc.smem()) for lc in rows} == {(256, 256, 0)}
 
 
 def test_gl5_expression_reader():

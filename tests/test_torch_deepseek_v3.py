@@ -172,7 +172,8 @@ def test_a_forced_imbalance_drops_nothing():
     want = rd.routed_and_shared(x, (wg, *zero_shared, e_gu[:4], e_down[:4]), bias, PORT,
                                 torch.matmul)
     torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-5)
-    assert moe.moe_counts() == {"calls": 1, "held_assignments": 96 * 4, "max_load": 96}
+    assert moe.moe_counts() == {"calls": 1, "held_assignments": 96 * 4, "max_load": 96,
+                                "bound_rows": 96 * 4}
 
 
 def test_the_bias_steers_the_choice_and_the_weights_stay_on_the_scores():
@@ -263,7 +264,8 @@ def test_counters_read_the_round_and_not_its_recompute(monkeypatch, remat):
     held = [((s >= 0) & (s < 4)) for s in first]
     loads = [torch.bincount(s[h], minlength=4) for s, h in zip(first, held)]
     assert moe.moe_counts() == {"calls": 2, "held_assignments": int(sum(h.sum() for h in held)),
-                                "max_load": int(max(ld.max() for ld in loads))}
+                                "max_load": int(max(ld.max() for ld in loads)),
+                                "bound_rows": sum(s.shape[0] for s in first) * min(CFG.top_k, 4)}
 
 
 def test_one_fused_round_equals_the_references_round_and_the_training_step():
