@@ -948,6 +948,273 @@ def phase_rounds_moonlight() -> dict:
     return rows
 
 
+# the Trinity cell's attention: [B, L, H query heads, H_kv K/V heads, D], bf16,
+# causal, the sliding layers' window of 2,048 keys and the full layers' none
+BAND_SHAPE = (4, 8192, 32, 4, 128)
+BAND_WINDOW = 2048
+# small band cases on the tile edges: (B, L, H, H_kv, D, window)
+BAND_CASES = [(1, 161, 4, 1, 128, 70), (2, 97, 8, 2, 64, None), (1, 130, 4, 2, 40, 33),
+              (1, 65, 2, 2, 64, 1), (1, 97, 8, 4, 64, 200)]
+
+
+def _band_inputs(B, L, H, Hk, D, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(heads):
+        return torch.randn((B, L, heads, D), generator=g, device="cuda").to(torch.bfloat16)
+
+    return rnd(H), rnd(Hk), rnd(Hk), rnd(H)
+
+
+def _band_check(q, k, v, do, window, tag, slices):
+    """One launch of each kernel with the band, its outputs at the (b, K/V
+    head) ``slices`` (each with its group of query heads) held to the plain
+    versions; returns the outputs' max abs errors."""
+    from pygrid_tpu_torch.parallel import flash_attention as fa
+
+    B, L, H, D = q.shape
+    G = H // k.shape[2]
+    scale = D ** -0.5
+    _poison()
+    out, lse = fa.flash_fwd(q, k, v, True, scale, window)
+    delta = fa.softmax_delta(out, do)
+    _poison()
+    dk, dv = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale, window)
+    _poison()
+    dq = fa.flash_bwd_dq(q, k, v, do, lse, delta, True, scale, window)
+    torch.cuda.synchronize()
+    errs = {}
+    for b, hk in slices:
+        hq = slice(hk * G, hk * G + G)
+        rows = slice(b * H + hk * G, b * H + hk * G + G)
+        qs, dos = q[b:b + 1, :, hq], do[b:b + 1, :, hq]
+        ks, vs = k[b:b + 1, :, hk:hk + 1], v[b:b + 1, :, hk:hk + 1]
+        at = f"{tag} at (b, K/V head) = ({b}, {hk})"
+        out_r, lse_r = fa.flash_fwd_reference(qs, ks, vs, True, scale, window)
+        dk_r, dv_r = fa.flash_bwd_dkv_reference(qs, ks, vs, dos, lse[rows], delta[rows], True,
+                                                scale, window)
+        dq_r = fa.flash_bwd_dq_reference(qs, ks, vs, dos, lse[rows], delta[rows], True, scale,
+                                         window)
+        for name, got, ref, dt in (
+                ("out", out[b:b + 1, :, hq], out_r, torch.bfloat16),
+                ("lse", lse[rows], lse_r, torch.float32),
+                ("dk", dk[b:b + 1, :, hk:hk + 1], dk_r, torch.bfloat16),
+                ("dv", dv[b:b + 1, :, hk:hk + 1], dv_r, torch.bfloat16),
+                ("dq", dq[b:b + 1, :, hq], dq_r, torch.bfloat16)):
+            errs[name] = max(errs.get(name, 0.0), _err(got, ref, dt, f"{name} {at}"))
+        del out_r, lse_r, dk_r, dv_r, dq_r
+    return errs
+
+
+def phase_timing_band() -> None:
+    """The band instantiations (a sliding window, grouped K/V heads): the
+    small cases on the tile edges, then BAND_SHAPE with BAND_WINDOW and
+    without a window, one launch of each kernel counted by kind, with two
+    (b, K/V head) slices held to the plain versions (a group's score
+    matrices are 2 GB in f32); then their device time beside
+    benchmark/work/window_flash.py's bound."""
+    from benchmark.work.window_flash import bounds
+    from pygrid_tpu_torch.parallel import flash_attention as fa
+
+    for i, (B, L, H, Hk, D, window) in enumerate(BAND_CASES):
+        q, k, v, do = _band_inputs(B, L, H, Hk, D, seed=20 + i)
+        tag = f"band [{B}, {L}, {H}/{Hk}, {D}] W {window}"
+        errs = _band_check(q, k, v, do, window, tag, [(b, hk) for b in range(B)
+                                                      for hk in range(Hk)])
+        print(f"[kernels] {tag}: " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items()))
+    B, L, H, Hk, D = BAND_SHAPE
+    q, k, v, do = _band_inputs(B, L, H, Hk, D, seed=5)
+    scale = D ** -0.5
+    for window in (BAND_WINDOW, None):
+        tag = f"band {list(BAND_SHAPE)} bf16 causal W {window}"
+        fa.reset_launch_counts()
+        errs = _band_check(q, k, v, do, window, tag, [(0, 0), (B - 1, Hk - 1)])
+        band = fa.band_counts()
+        one = dict.fromkeys(fa.launch_counts(), 1)
+        check(fa.launch_counts() == one and band["grouped"] == one
+              and band["window"] == dict.fromkeys(one, int(window is not None)),
+              f"{tag}: launches {fa.launch_counts()}, band {band}")
+        print(f"[kernels] {tag}: " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+              + f"; tile pairs {band['tile_pairs']} of causal {band['causal_tile_pairs']} "
+              f"({band['tile_pairs'] / band['causal_tile_pairs']:.4f})")
+        out, lse = fa.flash_fwd(q, k, v, True, scale, window)
+        delta = fa.softmax_delta(out, do)
+        calls = {
+            "flash_fwd": lambda: fa.flash_fwd(q, k, v, True, scale, window),
+            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale,
+                                                      window),
+            "flash_bwd_dq": lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True, scale,
+                                                    window),
+        }
+        for name, (bound, by, flops, nbytes) in bounds((B, L, H, Hk, D), window).items():
+            dev, ev = device_ms(calls[name]), time_ms(calls[name], iters=5)
+            print(f"[timing band] {name} {list(BAND_SHAPE)} W {window} bf16 causal: device "
+                  f"time {dev:.4f} ms ({ev:.4f} ms by events), bound {bound:.4f} ms ({by}; "
+                  f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB), {100 * bound / dev:.2f} % "
+                  f"of it, {flops / dev / 1e9:.1f} TFLOP/s")
+        del out, lse, delta
+    fa.reset_launch_counts()
+
+
+# the unbanded launches of the benchmark's other flash cells: GPT-2's
+# [B, L, H, D] and Moonlight's narrow-V [B, L, H, D_qk] with D_v
+UNBANDED_SHAPES = {"gpt2s-fedavg-k8": ((32, 1024, 12, 64), None),
+                   "moonlight-ep8-fedavg-k4-l8192": ((4, 8192, 16, 192), 128)}
+# device ms of each kernel at UNBANDED_SHAPES, by the helpers every checkout
+# of this file has (run from the checkout's root, printed as one JSON line)
+_UNBANDED_PROBE = """
+import json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as c
+from pygrid_tpu_torch.kernels import build
+from pygrid_tpu_torch.parallel import flash_attention as fa
+build.build_all()
+out = {}
+for cell, (shape, dv) in %r.items():
+    q, k, v, do = c._inputs(shape, shape[1], torch.bfloat16, seed=3, Dv=dv)
+    scale = shape[-1] ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, True, scale)
+    delta = fa.softmax_delta(o, do)
+    for name, fn in (("flash_fwd", lambda: fa.flash_fwd(q, k, v, True, scale)),
+                     ("flash_bwd_dkv", lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, scale)),
+                     ("flash_bwd_dq", lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True, scale))):
+        out[cell + " " + name] = c.device_ms(fn, calls=7)
+print("UNBANDED " + json.dumps(out), flush=True)
+"""
+
+
+def phase_unbanded_vs_parent(parent: str) -> None:
+    """GPT-2's and Moonlight's flash launches, which take no band, timed in
+    this checkout and in the parent's at ``parent`` in turns (parent,
+    change, change, parent; one process each); each kernel's device time
+    must stay within 1 % of the parent's (summed over both turns). Not in
+    main(): it needs the parent's checkout, say ``git archive`` into a
+    git-ignored directory."""
+    here = Path(__file__).resolve().parent
+    code = _UNBANDED_PROBE % (UNBANDED_SHAPES,)
+    turns = {"parent": [], "change": []}
+    for side in ("parent", "change", "change", "parent"):
+        out = subprocess.run([sys.executable, "-c", code], cwd=parent if side == "parent" else here,
+                             capture_output=True, text=True, check=True, timeout=600).stdout
+        line = [x for x in out.splitlines() if x.startswith("UNBANDED ")][-1]
+        turns[side].append(json.loads(line[len("UNBANDED "):]))
+    for key in turns["parent"][0]:
+        p = sum(t[key] for t in turns["parent"])
+        ch = sum(t[key] for t in turns["change"])
+        print(f"[timing unbanded] {key}: parent {p / 2:.4f} ms, change {ch / 2:.4f} ms device "
+              f"time ({ch / p:.4f}x)")
+        check(ch <= 1.01 * p, f"{key}: {ch / 2:.4f} ms against the parent's {p / 2:.4f}")
+
+
+TRINITY_CELL = "trinity-mini-ep16-fedavg-k4-l8192"
+
+
+def phase_rounds_trinity() -> dict:
+    """One FedAvg round of TRINITY_CELL as the benchmark builds it, after
+    one round of warm-up: one launch of each flash kernel a layer, every
+    one grouped and the sliding layers' with the window, the forwards'
+    tile pairs those of 9 sliding and 3 full layers; the row kernels once
+    per expert layer and direction; the round's peak memory."""
+    from benchmark import harness, traffic
+    from pygrid_tpu_torch.models import moe
+    from pygrid_tpu_torch.parallel import flash_attention as fa, make_fused_round
+
+    root = Path(__file__).resolve().parent
+    cell = harness.load_cell(root, TRINITY_CELL)
+    port = cell.config["port"]
+    ctx = harness.RunContext(root=root, cell=cell, seed=7, seconds=1, trace=False,
+                             device="cuda", t0=0.0, rank=0, world=1, store=None)
+    fam = ctx.family()
+    torch.cuda.reset_peak_memory_stats()
+    params = fam.init(cell.config, 7, "cuda")
+    X, y = traffic.batch(cell.traffic, cell.config, 7, 0, "cuda")
+    round_fn = make_fused_round(fam.port_loss(cell.config, cell.spec),
+                                local_steps=cell.spec["local_steps"])
+    round_fn(params, X, y, cell.spec["lr"])
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    moe.reset_launch_counts()
+    t0 = time.perf_counter()
+    new, loss, _ = round_fn(params, X, y, cell.spec["lr"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    layers = port["n_layers"]
+    sliding = sum(kind == "sliding_attention" for kind in port["layer_types"])
+    counts, band = fa.launch_counts(), fa.band_counts()
+    recompute = 2 if cell.spec.get("remat") else 1
+    want = {"flash_fwd": recompute * layers, "flash_bwd_dkv": layers, "flash_bwd_dq": layers}
+    check(counts == want and band["grouped"] == counts,
+          f"{TRINITY_CELL}: launches {counts}, band {band}, expected {want}, all grouped")
+    check(band["window"] == {k: n // layers * sliding for k, n in want.items()},
+          f"{TRINITY_CELL}: windowed launches {band['window']}, {sliding} sliding layers")
+    print(f"[rounds] {TRINITY_CELL}: one round {ms:.1f} ms, loss {float(loss):.4f}, launched "
+          f"{counts}, band {band} ({band['tile_pairs'] / band['causal_tile_pairs']:.4f} of "
+          f"causal's tile pairs); peak memory {torch.cuda.max_memory_allocated()} B; "
+          f"row kernels {moe.launch_counts()}")
+    check(bool(torch.isfinite(loss)), f"{TRINITY_CELL}: loss {float(loss)}")
+    del params, X, y, round_fn, new
+    torch.cuda.empty_cache()
+    return counts
+
+
+#: the faults TRINITY_CELL's limits must fail: ``models/afmoe.py``'s
+#: ``layer_attention`` (RoPE, window) of a layer kind, broken
+TRINITY_FAULTS = {
+    "window_dropped": lambda cfg, kind: (kind == "sliding_attention", None),
+    "rope_on_full": lambda cfg, kind: (
+        True, cfg.sliding_window if kind == "sliding_attention" else None),
+}
+
+
+def phase_trinity_limits(seeds=(11, 12, 13),
+                         sides=("program", *TRINITY_FAULTS, "fp8", "half")) -> None:
+    """The readings TRINITY_CELL's limits are set from, at the cell's size,
+    each seed's reference computed once: the program as a run checks it, the
+    fp8 control and half the clients (``benchmark/calibrate.py``'s sides),
+    and the program with the sliding layers' window dropped and with RoPE
+    on the full layers too (TRINITY_FAULTS). One JSON line a reading. Not
+    in main(): about four minutes a seed.
+
+        python3 -c "import chip_smoke as c; c.phase_build(); c.phase_trinity_limits()"
+    """
+    from benchmark import harness
+    from benchmark.reference import compare
+    from pygrid_tpu_torch.models import afmoe
+    from pygrid_tpu_torch.parallel import make_fused_round
+
+    root = Path(__file__).resolve().parent
+    cell = harness.load_cell(root, TRINITY_CELL)
+    single = harness.load_entry(root, "fedavg_round")
+    spec, K = cell.spec, cell.traffic["clients"]
+    real = afmoe.layer_attention
+    for seed in seeds:
+        ctx = harness.RunContext(root=root, cell=cell, seed=seed, seconds=1, trace=False,
+                                 device="cuda", t0=time.perf_counter())
+        fam = ctx.family()
+        ref = single.reference_readings(ctx, fam, "cuda")
+        for side in sides:
+            t0 = time.perf_counter()
+            if side == "fp8":
+                prog = single.reference_readings(ctx, fam, "cuda", precision="fp8")
+            elif side == "half":
+                prog = single.reference_readings(ctx, fam, "cuda", clients=K // 2)
+            else:
+                afmoe.layer_attention = TRINITY_FAULTS.get(side, real)
+                try:
+                    single.pin_precision()
+                    _, params, pool, loss_fn = single.setup(ctx, "cuda")
+                    round_fn = make_fused_round(loss_fn, local_steps=spec["local_steps"])
+                    _, prog = single.first_rounds(round_fn, params, pool, spec["lr"])
+                    del params, pool, round_fn, loss_fn
+                finally:
+                    afmoe.layer_attention = real
+            torch.cuda.empty_cache()
+            nums = compare.training_numbers(prog, ref)
+            print(json.dumps(dict(seed=seed, side=side, **nums, limits=spec["limits"],
+                                  seconds=round(time.perf_counter() - t0, 1))), flush=True)
+
+
 # --------------------------------------------------------------------------
 # phases 4-6: the rounds
 # --------------------------------------------------------------------------
@@ -4584,6 +4851,8 @@ def main() -> int:
     errs.update(moe_errs)
     timing.update(moe_timing)
     moe_launches = phase_rounds_moonlight()
+    phase_timing_band()
+    phase_rounds_trinity()
     launches, params = phase_rounds()
     launches.update(moe_launches)
     phase_small()

@@ -151,6 +151,7 @@ def _is_tensor_expr(node: ast.AST) -> bool:
             "torch.device", "torch.dtype", "torch.Size",
             "torch.is_tensor", "torch.is_floating_point",
             "torch.autograd._profiler_enabled",
+            "torch._C._current_graph_task_id",  # an int: -1 outside a backward
         ):
             return True
         return (

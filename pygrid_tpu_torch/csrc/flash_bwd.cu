@@ -64,6 +64,13 @@
 // from f32 tiles in shared memory, 64-row tiles, 256 threads with a 4x4
 // register tile each.
 //
+// With a band (BAND = 1: a sliding window W, or K/V at H / group heads), the
+// dQ kernel starts its key loop where the band starts, as the forward does;
+// a dK/dV block owns (b, K/V head, key tile) and walks its group's query
+// heads x the query tiles the band reaches ([k0 / BQ, tile of k0 + BK - 2 +
+// W]) as one double-buffered loop, so dK and dV are summed over the group
+// in registers and written once at the K/V heads: no per-query-head dK/dV.
+//
 // Next steps: wgmma fed by TMA with a producer warp, and a persistent
 // schedule over the tiles.
 //
@@ -416,7 +423,7 @@ constexpr int TC_BK = 64;        // keys per block, 16 per warp
 constexpr int TC_BQ = 32;        // queries per Q/dO tile
 constexpr int TC_THREADS = 128;  // 4 warps
 
-template <int DP>
+template <int DP, int BAND>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
@@ -424,7 +431,8 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ dk,
                         __nv_bfloat16* __restrict__ dv, int H, int Lq, int Lk, int D, int q_sb,
                         int q_sl, int q_sh, int o_sb, int o_sl, int o_sh, int k_sb, int k_sl,
-                        int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal) {
+                        int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal,
+                        int group, int window) {
   using namespace tc;
   constexpr int P = DP + PAD;  // row pitch of every shared tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -435,16 +443,21 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   float* sLse = reinterpret_cast<float*>(sO + 2 * TC_BQ * P);        // [2][BQ]
   float* sDelta = sLse + 2 * TC_BQ;                                  // [2][BQ]
 
+  // a block owns (b, K/V head hk, key tile); with a band it loops over the
+  // group's query heads h0 .. h0 + G - 1 (BAND = 0: G = 1, the one head h0)
+  const int G = BAND ? group : 1;
+  const int Hk = H / G;
   const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int h = bh - b * H;
+  const int b = bh / Hk;
+  const int hk = bh - b * Hk;
+  const int h0 = hk * G;
   const int k0 = blockIdx.y * TC_BK;  // low key tiles see the most queries: they start first
-  const __nv_bfloat16* qb = q + (long long)b * q_sb + (long long)h * q_sh;
-  const __nv_bfloat16* ob = dout + (long long)b * o_sb + (long long)h * o_sh;
-  const __nv_bfloat16* kb = k + (long long)b * k_sb + (long long)h * k_sh;
-  const __nv_bfloat16* vb = v + (long long)b * v_sb + (long long)h * v_sh;
-  const float* lse_b = lse + (long long)bh * Lq;
-  const float* delta_b = delta + (long long)bh * Lq;
+  const __nv_bfloat16* qb = q + (long long)b * q_sb + (long long)h0 * q_sh;
+  const __nv_bfloat16* ob = dout + (long long)b * o_sb + (long long)h0 * o_sh;
+  const __nv_bfloat16* kb = k + (long long)b * k_sb + (long long)hk * k_sh;
+  const __nv_bfloat16* vb = v + (long long)b * v_sb + (long long)hk * v_sh;
+  const float* lse_b = lse + ((long long)b * H + h0) * Lq;
+  const float* delta_b = delta + ((long long)b * H + h0) * Lq;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -452,26 +465,35 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int t = lane & 3;   // fragment column pair: queries
   const int wrow = warp * 16;
 
-  // one query tile's Q, dO, lse and Delta into buffer `buf`
-  auto load_q_tile = [&](int qt, int buf) {
-    const int q0 = qt * TC_BQ;
-    load_tile_async<TC_BQ, DP, TC_THREADS>(sQ + buf * TC_BQ * P, qb, q_sl, q0, Lq, D);
-    load_tile_async<TC_BQ, DP, TC_THREADS>(sO + buf * TC_BQ * P, ob, o_sl, q0, Lq, D);
+  const int n_q = (Lq + TC_BQ - 1) / TC_BQ;
+  // causal: a query tile whose last query precedes the first key is all
+  // masked (qt * BQ + BQ - 1 < k0) and is skipped; a band ends at the tile
+  // of query k0 + BK - 1 + W - 1, the last that sees the tile's last key
+  const int q_first = causal ? k0 / TC_BQ : 0;
+  const int W = band_width(window);
+  const int q_end = BAND ? imin(n_q, (int)(((long long)k0 + TC_BK - 2 + W) / TC_BQ) + 1) : n_q;
+  const int n_qb = q_end - q_first;  // query tiles a head takes
+  const int n_it = G * n_qb;          // step it: head it / n_qb, tile q_first + it % n_qb
+
+  // step it's Q, dO, lse and Delta tiles into buffer `buf`
+  auto load_q_tile = [&](int it, int buf) {
+    const int j = BAND ? it / n_qb : 0;
+    const int q0 = (q_first + (BAND ? it - j * n_qb : it)) * TC_BQ;
+    load_tile_async<TC_BQ, DP, TC_THREADS>(sQ + buf * TC_BQ * P, qb + (long long)j * q_sh, q_sl,
+                                           q0, Lq, D);
+    load_tile_async<TC_BQ, DP, TC_THREADS>(sO + buf * TC_BQ * P, ob + (long long)j * o_sh, o_sl,
+                                           q0, Lq, D);
     for (int i = threadIdx.x; i < 2 * TC_BQ; i += TC_THREADS) {
       const int r = i % TC_BQ;
       const bool in = q0 + r < Lq;
-      const float* src = i < TC_BQ ? lse_b : delta_b;
+      const float* src = (i < TC_BQ ? lse_b : delta_b) + (long long)j * Lq;
       cp_async_4((i < TC_BQ ? sLse : sDelta) + buf * TC_BQ + r, in ? src + q0 + r : src, in);
     }
   };
 
-  const int n_q = (Lq + TC_BQ - 1) / TC_BQ;
-  // causal: a query tile whose last query precedes the first key is all
-  // masked (qt * BQ + BQ - 1 < k0) and is skipped
-  const int q_first = causal ? k0 / TC_BQ : 0;
   load_tile_async<TC_BK, DP, TC_THREADS>(sK, kb, k_sl, k0, Lk, D);
   load_tile_async<TC_BK, DP, TC_THREADS>(sV, vb, v_sl, k0, Lk, D);
-  if (q_first < n_q) load_q_tile(q_first, 0);
+  if (n_it > 0) load_q_tile(0, 0);
   cp_async_commit();
 
   const float sl2 = scale * 1.4426950408889634f;  // log2 units
@@ -481,10 +503,11 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc_dk[n][c] = acc_dv[n][c] = 0.f;
 
-  for (int qt = q_first; qt < n_q; ++qt) {
-    const int cur = (qt - q_first) & 1;
-    if (qt + 1 < n_q) {  // the next tile's copy runs under this tile's math
-      load_q_tile(qt + 1, cur ^ 1);
+  for (int it = 0; it < n_it; ++it) {
+    const int cur = it & 1;
+    const int qt = q_first + (BAND ? it % n_qb : it);
+    if (it + 1 < n_it) {  // the next tile's copy runs under this tile's math
+      load_q_tile(it + 1, cur ^ 1);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -522,11 +545,11 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // P^T = exp(min(S^T scale - lse, 0)) and dS^T = P^T (dP^T - Delta) scale,
-    // f32; invalid pairs (pad query, pad key, causal) only on the diagonal
-    // and ragged tiles, where they become 0
+    // f32; invalid pairs (pad query, pad key, causal, past the band) only on
+    // the diagonal, ragged and band-edge tiles, where they become 0
     const int q0 = qt * TC_BQ;
-    const bool need_mask =
-        (causal && q0 < k0 + TC_BK - 1) || q0 + TC_BQ > Lq || k0 + TC_BK > Lk;
+    const bool need_mask = (causal && q0 < k0 + TC_BK - 1) || q0 + TC_BQ > Lq ||
+                           k0 + TC_BK > Lk || (BAND && q0 + TC_BQ - 1 - k0 >= W);
 #pragma unroll
     for (int j = 0; j < TC_BQ / 8; ++j) {
 #pragma unroll
@@ -538,7 +561,8 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
         if (need_mask) {
           const int qpos = q0 + qc;
           const int kpos = k0 + wrow + g + (c >> 1) * 8;
-          if (qpos >= Lq || kpos >= Lk || (causal && qpos < kpos)) p = 0.f;
+          if (qpos >= Lq || kpos >= Lk || (causal && qpos < kpos) || (BAND && qpos - kpos >= W))
+            p = 0.f;
         }
         s[j][c] = p;
         dp[j][c] = p * (dp[j][c] - Dt[qc]) * scale;
@@ -589,28 +613,28 @@ flash_bwd_dkv_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   __syncthreads();
-  const long long out0 = ((long long)b * Lk * H + h) * D;
-  store_tile<TC_BK, DP, TC_THREADS>(dk + out0, (long long)H * D, sK, k0, Lk, D);
-  store_tile<TC_BK, DP, TC_THREADS>(dv + out0, (long long)H * D, sV, k0, Lk, D);
+  const long long out0 = ((long long)b * Lk * Hk + hk) * D;
+  store_tile<TC_BK, DP, TC_THREADS>(dk + out0, (long long)Hk * D, sK, k0, Lk, D);
+  store_tile<TC_BK, DP, TC_THREADS>(dv + out0, (long long)Hk * D, sV, k0, Lk, D);
 }
 
-template <int DP>
+template <int DP, int BAND>
 int launch_dkv_tc(const void* q, const void* dout, const void* lse, const void* delta,
                   const void* k, const void* v, void* dk, void* dv, int B, int H, int Lq, int Lk,
                   int D, int q_sb, int q_sl, int q_sh, int o_sb, int o_sl, int o_sh, int k_sb,
                   int k_sl, int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal,
-                  cudaStream_t stream) {
+                  int group, int window, cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) * (2 * TC_BK + 4 * TC_BQ) * (DP + tc::PAD) +
                       sizeof(float) * 4 * TC_BQ;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<DP>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tc_kernel<DP, BAND>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(B * H, (Lk + TC_BK - 1) / TC_BK);
-  flash_bwd_dkv_tc_kernel<DP><<<grid, TC_THREADS, smem, stream>>>(
+  const dim3 grid(B * (H / group), (Lk + TC_BK - 1) / TC_BK);  // one block a (b, K/V head)
+  flash_bwd_dkv_tc_kernel<DP, BAND><<<grid, TC_THREADS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)dout, (const float*)lse,
       (const float*)delta, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
       (__nv_bfloat16*)dk, (__nv_bfloat16*)dv, H, Lq, Lk, D, q_sb, q_sl, q_sh, o_sb, o_sl, o_sh,
-      k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal);
+      k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal, group, window);
   return (int)cudaGetLastError();
 }
 
@@ -619,7 +643,7 @@ int launch_dkv_tc(const void* q, const void* dout, const void* lse, const void* 
 constexpr int TC_DQ_BQ = 64;  // queries per block, 16 per warp
 constexpr int TC_DQ_BK = 64;  // keys per K/V tile
 
-template <int DP>
+template <int DP, int BAND>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
@@ -627,7 +651,7 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ dq,
                        int H, int Lq, int Lk, int D, int q_sb, int q_sl, int q_sh, int o_sb,
                        int o_sl, int o_sh, int k_sb, int k_sl, int k_sh, int v_sb, int v_sl,
-                       int v_sh, float scale, int causal) {
+                       int v_sh, float scale, int causal, int group, int window) {
   using namespace tc;
   constexpr int P = DP + PAD;  // row pitch of every shared tile
   constexpr int BQ = TC_DQ_BQ, BK = TC_DQ_BK;
@@ -642,10 +666,11 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   const int h = bh - b * H;
   const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
   const int q0 = qt * BQ;
+  const int hk = BAND ? h / group : h;  // the K/V head this query head reads
   const __nv_bfloat16* qb = q + (long long)b * q_sb + (long long)h * q_sh;
   const __nv_bfloat16* ob = dout + (long long)b * o_sb + (long long)h * o_sh;
-  const __nv_bfloat16* kb = k + (long long)b * k_sb + (long long)h * k_sh;
-  const __nv_bfloat16* vb = v + (long long)b * v_sb + (long long)h * v_sh;
+  const __nv_bfloat16* kb = k + (long long)b * k_sb + (long long)hk * k_sh;
+  const __nv_bfloat16* vb = v + (long long)b * v_sb + (long long)hk * v_sh;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -657,11 +682,14 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
   // causal: a K tile whose first key is past the block's last query is all
   // masked (kt * BK > q0 + BQ - 1) and is skipped
   if (causal && n_k > (q0 + BQ - 1) / BK + 1) n_k = (q0 + BQ - 1) / BK + 1;
+  // a band: the K tiles wholly before it (kt < kt0) are skipped too
+  const int W = band_width(window);
+  const int kt0 = BAND ? band_first(q0, W, BK) : 0;
 
   load_tile_async<BQ, DP, TC_THREADS>(sQ, qb, q_sl, q0, Lq, D);
   load_tile_async<BQ, DP, TC_THREADS>(sO, ob, o_sl, q0, Lq, D);
-  load_tile_async<BK, DP, TC_THREADS>(sK, kb, k_sl, 0, Lk, D);
-  load_tile_async<BK, DP, TC_THREADS>(sV, vb, v_sl, 0, Lk, D);
+  load_tile_async<BK, DP, TC_THREADS>(sK, kb, k_sl, kt0 * BK, Lk, D);
+  load_tile_async<BK, DP, TC_THREADS>(sV, vb, v_sl, kt0 * BK, Lk, D);
   cp_async_commit();
 
   // lse (log2 units) and Delta of rows g and g + 8, in registers; pad
@@ -682,8 +710,8 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[n][c] = 0.f;
 
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int cur = kt & 1;
+  for (int kt = kt0; kt < n_k; ++kt) {
+    const int cur = (kt - kt0) & 1;
     if (kt + 1 < n_k) {  // the next tile's copy runs under this tile's math
       const int nk0 = (kt + 1) * BK;
       load_tile_async<BK, DP, TC_THREADS>(sK + (cur ^ 1) * BK * P, kb, k_sl, nk0, Lk, D);
@@ -693,7 +721,7 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();  // tile kt (and at kt = 0, Q and dO) has landed
+    __syncthreads();  // tile kt (and at kt = kt0, Q and dO) has landed
     const __nv_bfloat16* Kt = sK + cur * BK * P;
     const __nv_bfloat16* Vt = sV + cur * BK * P;
 
@@ -725,10 +753,11 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
     }
 
     // P = exp(min(S scale - lse, 0)) and dS = P (dP - Delta) scale, f32;
-    // invalid pairs (pad query, pad key, causal) only on the diagonal and
-    // ragged tiles, where they become 0
+    // invalid pairs (pad query, pad key, causal, past the band) only on the
+    // diagonal, ragged and band-edge tiles, where they become 0
     const int k0 = kt * BK;
-    const bool need_mask = (causal && k0 + BK - 1 > q0) || q0 + BQ > Lq || k0 + BK > Lk;
+    const bool need_mask = (causal && k0 + BK - 1 > q0) || q0 + BQ > Lq || k0 + BK > Lk ||
+                           (BAND && q0 + BQ - 1 - k0 >= W);
 #pragma unroll
     for (int j = 0; j < BK / 8; ++j) {
 #pragma unroll
@@ -740,7 +769,8 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
         if (need_mask) {
           const int qpos = q0 + wrow + g + 8 * hh;
           const int kpos = k0 + 8 * j + 2 * t + (c & 1);
-          if (qpos >= Lq || kpos >= Lk || (causal && qpos < kpos)) p = 0.f;
+          if (qpos >= Lq || kpos >= Lk || (causal && qpos < kpos) || (BAND && qpos - kpos >= W))
+            p = 0.f;
         }
         dp[j][c] = p * (dp[j][c] - dlt[hh]) * scale;
       }
@@ -780,22 +810,22 @@ flash_bwd_dq_tc_kernel(const __nv_bfloat16* __restrict__ q,
                                  Lq, D);
 }
 
-template <int DP>
+template <int DP, int BAND>
 int launch_dq_tc(const void* q, const void* dout, const void* lse, const void* delta,
                  const void* k, const void* v, void* dq, int B, int H, int Lq, int Lk, int D,
                  int q_sb, int q_sl, int q_sh, int o_sb, int o_sl, int o_sh, int k_sb, int k_sl,
-                 int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal,
-                 cudaStream_t stream) {
+                 int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal, int group,
+                 int window, cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) * (2 * TC_DQ_BQ + 4 * TC_DQ_BK) * (DP + tc::PAD);
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<DP>,
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<DP, BAND>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (Lq + TC_DQ_BQ - 1) / TC_DQ_BQ);
-  flash_bwd_dq_tc_kernel<DP><<<grid, TC_THREADS, smem, stream>>>(
+  flash_bwd_dq_tc_kernel<DP, BAND><<<grid, TC_THREADS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)dout, (const float*)lse,
       (const float*)delta, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, (__nv_bfloat16*)dq,
       H, Lq, Lk, D, q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale,
-      causal);
+      causal, group, window);
   return (int)cudaGetLastError();
 }
 
@@ -1331,20 +1361,25 @@ int launch_dq_tc_wide(const void* q, const void* dout, const void* lse, const vo
 
 }  // namespace pgt
 
-// dk: contiguous [B, Lk, H, D] and dv [B, Lk, H, Dv] in the input dtype;
+// dk: contiguous [B, Lk, Hkv, D] and dv [B, Lk, Hkv, Dv] in the input dtype;
 // D is the query/key width, 1 <= D <= MAX_D, and Dv the value width: Dv ==
 // D, or in bf16 the narrow-V shape Dv <= DC < D <= NV_DQK. lse, delta:
 // contiguous f32 [B*H, Lq]. bf16 runs on the tensor cores and needs D and
 // Dv % 8 == 0, strides that are multiples of 8 elements and 16-byte-aligned
 // q, dO, k, v (the wrapper makes a padded copy where a view is not so).
+// k and v hold Hkv heads (H % Hkv == 0; query head h reads K/V head
+// h / (H / Hkv)), and window > 0 keeps the pairs 0 <= i - j < window; both
+// only in bf16 at D == Dv <= DC (the band instantiations), where each dK/dV
+// block sums its group's query heads.
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int pgt_flash_bwd_dkv(const void* q, const void* dout, const void* lse,
                                  const void* delta, const void* k, const void* v, void* dk,
                                  void* dv, int B, int H, int Lq, int Lk, int D, int Dv, int q_sb,
                                  int q_sl, int q_sh, int o_sb, int o_sl, int o_sh, int k_sb,
                                  int k_sl, int k_sh, int v_sb, int v_sl, int v_sh, float scale,
-                                 int causal, int is_bf16, void* stream) {
-  if (pgt::bad_shape(B, H, Lq, Lk, D, Dv, is_bf16)) return (int)cudaErrorInvalidValue;
+                                 int causal, int is_bf16, int Hkv, int window, void* stream) {
+  if (pgt::bad_shape(B, H, Lq, Lk, D, Dv, is_bf16, Hkv, window))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
     using pgt::tc::layout_ok;
@@ -1360,19 +1395,36 @@ extern "C" int pgt_flash_bwd_dkv(const void* q, const void* dout, const void* ls
       return pgt::launch_dkv_tc_wide<pgt::DC>(q, dout, lse, delta, k, v, dk, dv, B, H, Lq, Lk,
                                               D, D, q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb,
                                               k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal, s);
+    // a band (a window, or fewer K/V heads than query heads) takes the
+    // kernels' BAND instantiation; without one they run as they always have
+    const bool band = window != 0 || Hkv != H;
+    const int group = H / Hkv;
     switch (pgt::tc::padded_d(D)) {
       case 48:
-        return pgt::launch_dkv_tc<48>(q, dout, lse, delta, k, v, dk, dv, B, H, Lq, Lk, D, q_sb,
-                                      q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb, v_sl,
-                                      v_sh, scale, causal, s);
+        return band ? pgt::launch_dkv_tc<48, 1>(q, dout, lse, delta, k, v, dk, dv, B, H, Lq, Lk,
+                                                D, q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl,
+                                                k_sh, v_sb, v_sl, v_sh, scale, causal, group,
+                                                window, s)
+                    : pgt::launch_dkv_tc<48, 0>(q, dout, lse, delta, k, v, dk, dv, B, H, Lq, Lk,
+                                                D, q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl,
+                                                k_sh, v_sb, v_sl, v_sh, scale, causal, 1, 0, s);
       case 64:
-        return pgt::launch_dkv_tc<64>(q, dout, lse, delta, k, v, dk, dv, B, H, Lq, Lk, D, q_sb,
-                                      q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb, v_sl,
-                                      v_sh, scale, causal, s);
+        return band ? pgt::launch_dkv_tc<64, 1>(q, dout, lse, delta, k, v, dk, dv, B, H, Lq, Lk,
+                                                D, q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl,
+                                                k_sh, v_sb, v_sl, v_sh, scale, causal, group,
+                                                window, s)
+                    : pgt::launch_dkv_tc<64, 0>(q, dout, lse, delta, k, v, dk, dv, B, H, Lq, Lk,
+                                                D, q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl,
+                                                k_sh, v_sb, v_sl, v_sh, scale, causal, 1, 0, s);
       default:
-        return pgt::launch_dkv_tc<128>(q, dout, lse, delta, k, v, dk, dv, B, H, Lq, Lk, D, q_sb,
-                                       q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb,
-                                       v_sl, v_sh, scale, causal, s);
+        return band ? pgt::launch_dkv_tc<128, 1>(q, dout, lse, delta, k, v, dk, dv, B, H, Lq, Lk,
+                                                 D, q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb,
+                                                 k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal,
+                                                 group, window, s)
+                    : pgt::launch_dkv_tc<128, 0>(q, dout, lse, delta, k, v, dk, dv, B, H, Lq, Lk,
+                                                 D, q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb,
+                                                 k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal, 1,
+                                                 0, s);
     }
   }
   return pgt::launch_dkv(q, dout, lse, delta, k, v, dk, dv, B, H, Lq, Lk, D, q_sb, q_sl,
@@ -1387,8 +1439,9 @@ extern "C" int pgt_flash_bwd_dq(const void* q, const void* dout, const void* lse
                                 int H, int Lq, int Lk, int D, int Dv, int q_sb, int q_sl,
                                 int q_sh, int o_sb, int o_sl, int o_sh, int k_sb, int k_sl,
                                 int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal,
-                                int is_bf16, void* stream) {
-  if (pgt::bad_shape(B, H, Lq, Lk, D, Dv, is_bf16)) return (int)cudaErrorInvalidValue;
+                                int is_bf16, int Hkv, int window, void* stream) {
+  if (pgt::bad_shape(B, H, Lq, Lk, D, Dv, is_bf16, Hkv, window))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
     using pgt::tc::layout_ok;
@@ -1403,19 +1456,33 @@ extern "C" int pgt_flash_bwd_dq(const void* q, const void* dout, const void* lse
       return pgt::launch_dq_tc_wide<pgt::DC>(q, dout, lse, delta, k, v, dq, B, H, Lq, Lk, D, D,
                                              q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh,
                                              v_sb, v_sl, v_sh, scale, causal, s);
+    const bool band = window != 0 || Hkv != H;
+    const int group = H / Hkv;
     switch (pgt::tc::padded_d(D)) {
       case 48:
-        return pgt::launch_dq_tc<48>(q, dout, lse, delta, k, v, dq, B, H, Lq, Lk, D, q_sb, q_sl,
-                                     q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh,
-                                     scale, causal, s);
+        return band ? pgt::launch_dq_tc<48, 1>(q, dout, lse, delta, k, v, dq, B, H, Lq, Lk, D,
+                                               q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl,
+                                               k_sh, v_sb, v_sl, v_sh, scale, causal, group,
+                                               window, s)
+                    : pgt::launch_dq_tc<48, 0>(q, dout, lse, delta, k, v, dq, B, H, Lq, Lk, D,
+                                               q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl,
+                                               k_sh, v_sb, v_sl, v_sh, scale, causal, 1, 0, s);
       case 64:
-        return pgt::launch_dq_tc<64>(q, dout, lse, delta, k, v, dq, B, H, Lq, Lk, D, q_sb, q_sl,
-                                     q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh,
-                                     scale, causal, s);
+        return band ? pgt::launch_dq_tc<64, 1>(q, dout, lse, delta, k, v, dq, B, H, Lq, Lk, D,
+                                               q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl,
+                                               k_sh, v_sb, v_sl, v_sh, scale, causal, group,
+                                               window, s)
+                    : pgt::launch_dq_tc<64, 0>(q, dout, lse, delta, k, v, dq, B, H, Lq, Lk, D,
+                                               q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl,
+                                               k_sh, v_sb, v_sl, v_sh, scale, causal, 1, 0, s);
       default:
-        return pgt::launch_dq_tc<128>(q, dout, lse, delta, k, v, dq, B, H, Lq, Lk, D, q_sb, q_sl,
-                                      q_sh, o_sb, o_sl, o_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh,
-                                      scale, causal, s);
+        return band ? pgt::launch_dq_tc<128, 1>(q, dout, lse, delta, k, v, dq, B, H, Lq, Lk, D,
+                                                q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl,
+                                                k_sh, v_sb, v_sl, v_sh, scale, causal, group,
+                                                window, s)
+                    : pgt::launch_dq_tc<128, 0>(q, dout, lse, delta, k, v, dq, B, H, Lq, Lk, D,
+                                                q_sb, q_sl, q_sh, o_sb, o_sl, o_sh, k_sb, k_sl,
+                                                k_sh, v_sb, v_sl, v_sh, scale, causal, 1, 0, s);
     }
   }
   return pgt::launch_dq(q, dout, lse, delta, k, v, dq, B, H, Lq, Lk, D, q_sb, q_sl, q_sh,

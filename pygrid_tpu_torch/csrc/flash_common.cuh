@@ -27,6 +27,11 @@
 // chunks, so that one block owns all of its outputs (O and dV at Dv, dK and
 // dQ at D), S is formed once per tile pair over D and dP over Dv, and no
 // slice axis recomputes them. The f32 kernels take one D.
+//
+// A band -- a sliding window W (query i sees key j where 0 <= i - j < W) or
+// k and v at Hkv < H heads (grouped-query attention) -- runs in the bf16
+// D <= DC kernels' BAND = 1 instantiations; BAND = 0 compiles the code
+// without either, so an unbanded launch runs as it did before bands.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -58,11 +63,30 @@ __host__ __device__ __forceinline__ int k_steps(int width, int cap) {
 }
 
 // Shapes no kernel takes: D is the query/key width and Dv the value width,
-// which only the bf16 narrow-V path lets differ from D.
-inline bool bad_shape(int B, int H, int Lq, int Lk, int D, int Dv, int is_bf16) {
+// which only the bf16 narrow-V path lets differ from D. Hkv is the number of
+// K/V heads (a divisor of H: query head h reads K/V head h / (H / Hkv)) and
+// window the band's width (0: none); only the bf16 D <= DC kernels take a
+// band, that is a window or Hkv < H.
+inline bool bad_shape(int B, int H, int Lq, int Lk, int D, int Dv, int is_bf16, int Hkv,
+                      int window) {
   const bool narrow_v = is_bf16 && Dv >= 1 && Dv <= DC && DC < D && D <= NV_DQK;
+  const bool band = window != 0 || Hkv != H;
   return D < 1 || D > MAX_D || (Dv != D && !narrow_v) || Lq < 1 || Lk < 1 || B * H < 1 ||
-         B * H > 65535;
+         B * H > 65535 || Hkv < 1 || H % Hkv != 0 || window < 0 ||
+         (band && (!is_bf16 || D > DC || Dv != D));
+}
+
+// The band of a sliding window W: query i sees key j where 0 <= i - j < W.
+// A kernel with a band takes W from its argument, 0 meaning no window, which
+// is a band wider than any sequence.
+__host__ __device__ __forceinline__ int band_width(int window) {
+  return window > 0 ? window : (1 << 30);
+}
+
+// The first T-wide key tile that a query tile starting at q0 meets in a band
+// of width W: the tile of key q0 - W + 1, or 0.
+__host__ __device__ __forceinline__ int band_first(int q0, int W, int T) {
+  return q0 >= W ? (q0 - W + 1) / T : 0;
 }
 
 // Row pitch of a [TILE, D] tile in shared memory: the +1 puts neighbouring

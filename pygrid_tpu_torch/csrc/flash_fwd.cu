@@ -37,6 +37,12 @@
 // tiles in shared memory, 64-row tiles, 256 threads with a 4x4 register
 // tile each.
 //
+// With a band (BAND = 1: a sliding window W, or K/V at H / group heads), a
+// query head reads K/V head h / group, the key loop starts at the first tile
+// the band meets (band_first) and a tile that straddles the band's far edge
+// is masked too; at W = 2,048 and L = 8,192 a block visits 45 % of the
+// causal tile pairs.
+//
 // Next step: wgmma fed by TMA with a producer warp, and a persistent
 // schedule over (b*h, query tile) pairs.
 //
@@ -239,13 +245,13 @@ constexpr int TC_BM = 64;        // queries per block, 16 per warp
 constexpr int TC_BN = 64;        // keys per K/V tile
 constexpr int TC_THREADS = 128;  // 4 warps
 
-template <int DP>
+template <int DP, int BAND>
 __global__ void __launch_bounds__(TC_THREADS, 2)
 flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
                     float* __restrict__ lse, int H, int Lq, int Lk, int D, int q_sb, int q_sl,
                     int q_sh, int k_sb, int k_sl, int k_sh, int v_sb, int v_sl, int v_sh,
-                    float scale, int causal) {
+                    float scale, int causal, int group, int window) {
   using namespace tc;
   constexpr int P = DP + PAD;  // row pitch of every shared tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -258,9 +264,10 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const int h = bh - b * H;
   const int qt = gridDim.y - 1 - blockIdx.y;  // longest causal rows first
   const int q0 = qt * TC_BM;
+  const int hk = BAND ? h / group : h;  // the K/V head this query head reads
   const __nv_bfloat16* qb = q + (long long)b * q_sb + (long long)h * q_sh;
-  const __nv_bfloat16* kb = k + (long long)b * k_sb + (long long)h * k_sh;
-  const __nv_bfloat16* vb = v + (long long)b * v_sb + (long long)h * v_sh;
+  const __nv_bfloat16* kb = k + (long long)b * k_sb + (long long)hk * k_sh;
+  const __nv_bfloat16* vb = v + (long long)b * v_sb + (long long)hk * v_sh;
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -272,10 +279,13 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   // causal: a K tile whose first key is past the tile's last query is all
   // masked (kt > qt) and is skipped
   if (causal && n_k > qt + 1) n_k = qt + 1;
+  // a band: the K tiles wholly before it (kt < kt0) are skipped too
+  const int W = band_width(window);
+  const int kt0 = BAND ? band_first(q0, W, TC_BN) : 0;
 
   load_tile_async<TC_BM, DP, TC_THREADS>(sQ, qb, q_sl, q0, Lq, D);
-  load_tile_async<TC_BN, DP, TC_THREADS>(sK, kb, k_sl, 0, Lk, D);
-  load_tile_async<TC_BN, DP, TC_THREADS>(sV, vb, v_sl, 0, Lk, D);
+  load_tile_async<TC_BN, DP, TC_THREADS>(sK, kb, k_sl, kt0 * TC_BN, Lk, D);
+  load_tile_async<TC_BN, DP, TC_THREADS>(sV, vb, v_sl, kt0 * TC_BN, Lk, D);
   cp_async_commit();
 
   const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units
@@ -289,8 +299,8 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   float m_run[2] = {NEG, NEG};
   float l_run[2] = {0.f, 0.f};
 
-  for (int kt = 0; kt < n_k; ++kt) {
-    const int cur = kt & 1;
+  for (int kt = kt0; kt < n_k; ++kt) {
+    const int cur = (kt - kt0) & 1;
     if (kt + 1 < n_k) {  // the next tile's copy runs under this tile's math
       const int nk0 = (kt + 1) * TC_BN;
       load_tile_async<TC_BN, DP, TC_THREADS>(sK + (cur ^ 1) * TC_BN * P, kb, k_sl, nk0, Lk, D);
@@ -300,8 +310,8 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     } else {
       cp_async_wait<0>();
     }
-    __syncthreads();  // tile kt (and at kt = 0, Q) is in shared memory
-    if (kt == 0) {
+    __syncthreads();  // tile kt (and at kt = kt0, Q) is in shared memory
+    if (kt == kt0) {
 #pragma unroll
       for (int ks = 0; ks < DP / 16; ++ks)
         ldmatrix_x4(qf[ks], sQ + (wrow + (lane & 15)) * P + ks * 16 + (lane >> 4) * 8);
@@ -327,11 +337,13 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
       }
     }
 
-    // scale, then mask: only the diagonal tile and the ragged last tile
-    // hold invalid lanes, which become -inf (never above the finite start
-    // NEG of the running max, and exp2(-inf) is exactly 0)
+    // scale, then mask: only the diagonal tile, the ragged last tile and a
+    // tile that straddles the band's far edge hold invalid lanes, which
+    // become -inf (never above the finite start NEG of the running max, and
+    // exp2(-inf) is exactly 0)
     const int k0 = kt * TC_BN;
-    const bool need_mask = (causal && kt == qt) || k0 + TC_BN > Lk;
+    const bool need_mask = (causal && kt == qt) || k0 + TC_BN > Lk ||
+                           (BAND && q0 + TC_BM - 1 - k0 >= W);
 #pragma unroll
     for (int j = 0; j < TC_BN / 8; ++j) {
 #pragma unroll
@@ -340,7 +352,7 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
         if (need_mask) {
           const int kpos = k0 + 8 * j + 2 * t + (c & 1);
           const int qpos = q0 + wrow + g + (c >> 1) * 8;
-          if (kpos >= Lk || (causal && qpos < kpos)) x = neg_inf();
+          if (kpos >= Lk || (causal && qpos < kpos) || (BAND && qpos - kpos >= W)) x = neg_inf();
         }
         s[j][c] = x;
       }
@@ -428,20 +440,20 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
                                     q0, Lq, D);
 }
 
-template <int DP>
+template <int DP, int BAND>
 int launch_fwd_tc(const void* q, const void* k, const void* v, void* out, void* lse, int B,
                   int H, int Lq, int Lk, int D, int q_sb, int q_sl, int q_sh, int k_sb, int k_sl,
-                  int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal,
-                  cudaStream_t stream) {
+                  int k_sh, int v_sb, int v_sl, int v_sh, float scale, int causal, int group,
+                  int window, cudaStream_t stream) {
   const size_t smem = sizeof(__nv_bfloat16) * (TC_BM + 4 * TC_BN) * (DP + tc::PAD);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<DP>,
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_tc_kernel<DP, BAND>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * H, (Lq + TC_BM - 1) / TC_BM);
-  flash_fwd_tc_kernel<DP><<<grid, TC_THREADS, smem, stream>>>(
+  flash_fwd_tc_kernel<DP, BAND><<<grid, TC_THREADS, smem, stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
       (__nv_bfloat16*)out, (float*)lse, H, Lq, Lk, D, q_sb, q_sl, q_sh, k_sb, k_sl, k_sh, v_sb,
-      v_sl, v_sh, scale, causal);
+      v_sl, v_sh, scale, causal, group, window);
   return (int)cudaGetLastError();
 }
 
@@ -690,13 +702,18 @@ int launch_fwd_tc_wide(const void* q, const void* k, const void* v, void* out, v
 // width: Dv == D, or in bf16 the narrow-V shape Dv <= DC < D <= NV_DQK. bf16
 // runs on the tensor cores and needs D and Dv % 8 == 0, strides that are
 // multiples of 8 elements and 16-byte-aligned q, k, v (the wrapper makes a
-// padded copy where a view is not so); D > DC takes the wide kernel.
+// padded copy where a view is not so); D > DC takes the wide kernel. k and v
+// hold Hkv heads (H % Hkv == 0; query head h reads K/V head h / (H / Hkv)),
+// and window > 0 keeps the pairs 0 <= i - j < window: both only in bf16 at
+// D == Dv <= DC, the tensor-core kernel's band instantiation.
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int pgt_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                              int B, int H, int Lq, int Lk, int D, int Dv, int q_sb, int q_sl,
                              int q_sh, int k_sb, int k_sl, int k_sh, int v_sb, int v_sl, int v_sh,
-                             float scale, int causal, int is_bf16, void* stream) {
-  if (pgt::bad_shape(B, H, Lq, Lk, D, Dv, is_bf16)) return (int)cudaErrorInvalidValue;
+                             float scale, int causal, int is_bf16, int Hkv, int window,
+                             void* stream) {
+  if (pgt::bad_shape(B, H, Lq, Lk, D, Dv, is_bf16, Hkv, window))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16) {
     if (!pgt::tc::layout_ok(q, D, q_sb, q_sl, q_sh) || !pgt::tc::layout_ok(k, D, k_sb, k_sl, k_sh) ||
@@ -710,16 +727,32 @@ extern "C" int pgt_flash_fwd(const void* q, const void* k, const void* v, void* 
       return pgt::launch_fwd_tc_wide<pgt::DC>(q, k, v, out, lse, B, H, Lq, Lk, D, D, q_sb, q_sl,
                                               q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale,
                                               causal, s);
+    // a band (a window, or fewer K/V heads than query heads) takes the
+    // kernels' BAND instantiation; without one they run as they always have
+    const bool band = window != 0 || Hkv != H;
+    const int group = H / Hkv;
     switch (pgt::tc::padded_d(D)) {
       case 48:
-        return pgt::launch_fwd_tc<48>(q, k, v, out, lse, B, H, Lq, Lk, D, q_sb, q_sl, q_sh, k_sb,
-                                      k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal, s);
+        return band ? pgt::launch_fwd_tc<48, 1>(q, k, v, out, lse, B, H, Lq, Lk, D, q_sb, q_sl,
+                                                q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale,
+                                                causal, group, window, s)
+                    : pgt::launch_fwd_tc<48, 0>(q, k, v, out, lse, B, H, Lq, Lk, D, q_sb, q_sl,
+                                                q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale,
+                                                causal, 1, 0, s);
       case 64:
-        return pgt::launch_fwd_tc<64>(q, k, v, out, lse, B, H, Lq, Lk, D, q_sb, q_sl, q_sh, k_sb,
-                                      k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal, s);
+        return band ? pgt::launch_fwd_tc<64, 1>(q, k, v, out, lse, B, H, Lq, Lk, D, q_sb, q_sl,
+                                                q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale,
+                                                causal, group, window, s)
+                    : pgt::launch_fwd_tc<64, 0>(q, k, v, out, lse, B, H, Lq, Lk, D, q_sb, q_sl,
+                                                q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale,
+                                                causal, 1, 0, s);
       default:
-        return pgt::launch_fwd_tc<128>(q, k, v, out, lse, B, H, Lq, Lk, D, q_sb, q_sl, q_sh,
-                                       k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale, causal, s);
+        return band ? pgt::launch_fwd_tc<128, 1>(q, k, v, out, lse, B, H, Lq, Lk, D, q_sb, q_sl,
+                                                 q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale,
+                                                 causal, group, window, s)
+                    : pgt::launch_fwd_tc<128, 0>(q, k, v, out, lse, B, H, Lq, Lk, D, q_sb, q_sl,
+                                                 q_sh, k_sb, k_sl, k_sh, v_sb, v_sl, v_sh, scale,
+                                                 causal, 1, 0, s);
     }
   }
   return pgt::launch_fwd(q, k, v, out, lse, B, H, Lq, Lk, D, q_sb, q_sl, q_sh, k_sb,

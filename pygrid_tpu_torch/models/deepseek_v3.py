@@ -160,7 +160,7 @@ def rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
     return torch.cat([even * c - odd * s, odd * c + even * s], -1)
 
 
-def _swiglu(x: torch.Tensor, w_gu: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
+def swiglu_mlp(x: torch.Tensor, w_gu: torch.Tensor, w_down: torch.Tensor) -> torch.Tensor:
     """``(silu(x W_gate) · x W_up) W_down`` with gate‖up in one matrix."""
     f = w_down.shape[0]
     gu = x @ w_gu
@@ -211,7 +211,7 @@ def features(
         with region("pgt.model.block"):
             h = h + mla(h, *lp[:6])
             x = c(rms_norm(h, lp[6], cfg.rms_eps))
-            return h + _swiglu(x, c(lp[7]), c(lp[8]))
+            return h + swiglu_mlp(x, c(lp[7]), c(lp[8]))
 
     def moe_block(h, b, *lp):
         with region("pgt.model.block"):
@@ -222,7 +222,7 @@ def features(
             routed = topk_expert_layer(x, x32, wg, b, c(e_gu), c(e_down), cfg.experts_held,
                                        cfg.top_k, cfg.routed_scale)
             with region("pgt.moe.shared"):
-                shared = _swiglu(x, c(s_gu), c(s_down))
+                shared = swiglu_mlp(x, c(s_gu), c(s_down))
             return h + (routed + shared).view(B, L, d)
 
     dense_fn, moe_fn = lm.remat_block(dense_block, remat), lm.remat_block(moe_block, remat)

@@ -34,6 +34,18 @@ forms S and dP once per tile pair, with no slice axis and no zero-padded V;
 any other pair runs at one width, the narrower side zero-padded. The f32
 kernels take one width, so in f32 the narrower of v and q, k (and dO) is
 padded and the outputs sliced.
+
+k and v may hold fewer heads than q (grouped-query attention: query head h
+reads K/V head ``h // (H / H_kv)``), and a causal launch may keep only a
+band of width W (a sliding window: query i sees key j where
+``0 <= i - j < W``). Both run in bf16 at ``D = D_v <= 128``, through the
+tensor-core kernels' band instantiation: the forward and dQ blocks start
+their key loop at the first tile the band meets and mask only the tiles that
+straddle its edges; a dK/dV block owns a (b, K/V head, key tile), loops over
+its group's query heads and the query tiles the band reaches, and writes dK
+and dV once at H_kv heads. No copy of k or v at H heads is made, and no
+per-query-head dK/dV is summed afterwards. Every other path (f32, the wide
+and narrow-V kernels) raises for either; the plain versions take both.
 """
 
 from __future__ import annotations
@@ -43,15 +55,18 @@ import torch
 from pygrid_tpu_torch.kernels import build
 from pygrid_tpu_torch.utils.profiling import region
 
-#: launches of each kernel since the last :func:`reset_launch_counts`;
-#: a wrapper adds one where it launches its kernel and nowhere else
-fwd_launches = 0
-bwd_dkv_launches = 0
-bwd_dq_launches = 0
-#: of those, the launches that took the narrow-V path (D_v < D_qk)
-fwd_narrow_v = 0
-bwd_dkv_narrow_v = 0
-bwd_dq_narrow_v = 0
+_KERNELS = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+
+#: the wrappers' counters since the last :func:`reset_launch_counts`: by
+#: kernel, its launches (a wrapper adds one where it launches its kernel and
+#: nowhere else) and, of those, the launches that took the narrow-V path
+#: (D_v < D_qk), those with a window and those with fewer K/V heads than
+#: query heads; and the 64 x 64 (query, key) tile pairs that the causal
+#: forwards visit beside those full causal attention visits at the same
+#: shapes: host integers from the shapes (:func:`tile_pairs`), counted on
+#: every path, the plain versions' too, and not in a backward's recompute
+_counts: dict = {}
+
 
 #: widest head dim the CUDA kernels take (csrc/flash_common.cuh): past
 #: 128 they split D into 128-wide slices, and at 512 the wide dQ kernel's
@@ -70,28 +85,48 @@ _NEG = -1e30
 
 
 def launch_counts() -> dict[str, int]:
-    return {
-        "flash_fwd": fwd_launches,
-        "flash_bwd_dkv": bwd_dkv_launches,
-        "flash_bwd_dq": bwd_dq_launches,
-    }
+    return dict(_counts["launches"])
 
 
 def narrow_v_counts() -> dict[str, int]:
     """Of the launches :func:`launch_counts` counts, those that took the
     narrow-V path, by kernel."""
-    return {
-        "flash_fwd": fwd_narrow_v,
-        "flash_bwd_dkv": bwd_dkv_narrow_v,
-        "flash_bwd_dq": bwd_dq_narrow_v,
-    }
+    return dict(_counts["narrow_v"])
+
+
+def band_counts() -> dict:
+    """Of the launches :func:`launch_counts` counts, those with a window
+    and those with H_kv < H, by kernel; and the causal forwards' tile pairs
+    against full causal attention's at the same shapes."""
+    return {"window": dict(_counts["window"]), "grouped": dict(_counts["grouped"]),
+            "tile_pairs": _counts["tile_pairs"],
+            "causal_tile_pairs": _counts["causal_tile_pairs"]}
 
 
 def reset_launch_counts() -> None:
-    global fwd_launches, bwd_dkv_launches, bwd_dq_launches
-    global fwd_narrow_v, bwd_dkv_narrow_v, bwd_dq_narrow_v
-    fwd_launches = bwd_dkv_launches = bwd_dq_launches = 0
-    fwd_narrow_v = bwd_dkv_narrow_v = bwd_dq_narrow_v = 0
+    for kind in ("launches", "narrow_v", "window", "grouped"):
+        _counts[kind] = dict.fromkeys(_KERNELS, 0)
+    _counts["tile_pairs"] = _counts["causal_tile_pairs"] = 0
+
+
+reset_launch_counts()
+
+
+#: query and key rows of the forward kernel's tiles (csrc/flash_common.cuh)
+TILE = 64
+
+
+def tile_pairs(L: int, window: int | None) -> tuple[int, int]:
+    """(tile pairs a causal forward with ``window`` visits, tile pairs full
+    causal attention visits) for one (batch, head) slice of length ``L``,
+    in :data:`TILE` x :data:`TILE` tiles: the query tile at q0 visits the key
+    tiles from that of key ``q0 - W + 1`` to its own."""
+    n = -(-L // TILE)
+    causal = n * (n + 1) // 2
+    if window is None:
+        return causal, causal
+    visited = sum(qt - max(0, qt * TILE - window + 1) // TILE + 1 for qt in range(n))
+    return visited, causal
 
 
 # --------------------------------------------------------------------------
@@ -99,71 +134,107 @@ def reset_launch_counts() -> None:
 # --------------------------------------------------------------------------
 
 
-def _mask(Lq: int, Lk: int, causal: bool, device) -> torch.Tensor:
+def _mask(Lq: int, Lk: int, causal: bool, device, window: int | None = None) -> torch.Tensor:
     """Validity of each (query, key) pair, [Lq, Lk]. The kernels also mask
     pad queries and pad keys (positions past the true lengths inside a
-    tile); nothing is padded here, so only causality removes pairs."""
+    tile); nothing is padded here, so only causality and the window remove
+    pairs."""
     q_pos = torch.arange(Lq, device=device)[:, None]
     k_pos = torch.arange(Lk, device=device)[None, :]
-    if causal:
-        return q_pos >= k_pos
-    return torch.ones((Lq, Lk), dtype=torch.bool, device=device)
+    valid = q_pos >= k_pos if causal else torch.ones((Lq, Lk), dtype=torch.bool, device=device)
+    if window is not None:
+        valid = valid & (q_pos - k_pos < window)
+    return valid
 
 
-def _scores(q, k, scale):
-    """f32 scores [B, H, Lq, Lk] of the input-dtype operands."""
-    return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+# The products of the plain versions, with k and v at H_kv heads: query head
+# h pairs with K/V head h // (H / H_kv), and a K/V head's gradient sums its
+# group. At H_kv = H each is the one-head-per-head einsum.
 
 
-def _probs(q, k, lse, causal, scale):
+def _qk(x, y):
+    """[B, Lq, H, D] · [B, Lk, H_kv, D] -> [B, H, Lq, Lk] in f32."""
+    B, Lq, H, D = x.shape
+    Hk = y.shape[2]
+    if Hk == H:
+        return torch.einsum("bqhd,bkhd->bhqk", x.float(), y.float())
+    xg = x.float().reshape(B, Lq, Hk, H // Hk, D)
+    return torch.einsum("bqhgd,bkhd->bhgqk", xg, y.float()).reshape(B, H, Lq, -1)
+
+
+def _pv(p, y):
+    """[B, H, Lq, Lk] · [B, Lk, H_kv, D] -> [B, Lq, H, D] in f32."""
+    B, H, Lq, Lk = p.shape
+    Hk = y.shape[2]
+    if Hk == H:
+        return torch.einsum("bhqk,bkhd->bqhd", p.float(), y.float())
+    pg = p.float().reshape(B, Hk, H // Hk, Lq, Lk)
+    return torch.einsum("bhgqk,bkhd->bqhgd", pg, y.float()).reshape(B, Lq, H, -1)
+
+
+def _ptx(p, x, Hk: int):
+    """[B, H, Lq, Lk]ᵀ · [B, Lq, H, D] -> [B, Lk, H_kv, D] in f32, summed
+    over each group of query heads."""
+    B, H, Lq, Lk = p.shape
+    if Hk == H:
+        return torch.einsum("bhqk,bqhd->bkhd", p.float(), x.float())
+    pg = p.float().reshape(B, Hk, H // Hk, Lq, Lk)
+    xg = x.float().reshape(B, Lq, Hk, H // Hk, -1)
+    return torch.einsum("bhgqk,bqhgd->bkhd", pg, xg)
+
+
+def _probs(q, k, lse, causal, scale, window=None):
     """P = exp(min(s - lse, 0)) on valid lanes, 0 elsewhere, [B, H, Lq, Lk]."""
     B, Lq, H, _ = q.shape
-    s = _scores(q, k, scale)
-    valid = _mask(Lq, k.shape[1], causal, q.device)
+    s = _qk(q, k) * scale
+    valid = _mask(Lq, k.shape[1], causal, q.device, window)
     lse4 = lse.reshape(B, H, Lq, 1)
     p = torch.exp(torch.clamp(s - lse4, max=0.0))
     return torch.where(valid, p, torch.zeros_like(p))
 
 
-def _dscores(q, k, v, do, lse, delta, causal, scale):
+def _dscores(q, k, v, do, lse, delta, causal, scale, window=None):
     """(P, dS) with dS = P ∘ (dO vᵀ − Δ) · scale, both [B, H, Lq, Lk] f32."""
     B, Lq, H, _ = q.shape
-    p = _probs(q, k, lse, causal, scale)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    p = _probs(q, k, lse, causal, scale, window)
+    dp = _qk(do, v)
     ds = p * (dp - delta.reshape(B, H, Lq, 1)) * scale
     return p, ds
 
 
-def flash_fwd_reference(q, k, v, causal: bool, scale: float):
+def flash_fwd_reference(q, k, v, causal: bool, scale: float, window: int | None = None):
     """(out [B, Lq, H, D_v] in q's dtype, lse f32 [B·H, Lq]) — the forward
     kernel's function: the row max and sum over valid keys, P cast to v's
     dtype before the value product, rows with no valid key guarded."""
     B, Lq, H, _ = q.shape
-    s = _scores(q, k, scale)
-    valid = _mask(Lq, k.shape[1], causal, q.device)
+    s = _qk(q, k) * scale
+    valid = _mask(Lq, k.shape[1], causal, q.device, window)
     m = torch.where(valid, s, torch.full_like(s, _NEG)).amax(-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
-    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    out = _pv(p.to(v.dtype), v)
     out = out / l.squeeze(-1).permute(0, 2, 1)[..., None]
     lse = (m + torch.log(l)).reshape(B * H, Lq)
     return out.to(q.dtype), lse
 
 
-def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """(dk, dv) in k's and v's dtypes: dV = Pᵀ dO, dK = dSᵀ Q, with P and
-    dS cast to the operand dtype before the products (as the kernel does)."""
-    p, ds = _dscores(q, k, v, do, lse, delta, causal, scale)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), q.float())
+def flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal: bool, scale: float,
+                            window: int | None = None):
+    """(dk, dv) in k's and v's dtypes, at k's heads: dV = Pᵀ dO, dK = dSᵀ Q,
+    with P and dS cast to the operand dtype before the products (as the
+    kernel does)."""
+    p, ds = _dscores(q, k, v, do, lse, delta, causal, scale, window)
+    Hk = k.shape[2]
+    dv = _ptx(p.to(do.dtype), do, Hk)
+    dk = _ptx(ds.to(q.dtype), q, Hk)
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal: bool, scale: float):
+def flash_bwd_dq_reference(q, k, v, do, lse, delta, causal: bool, scale: float,
+                           window: int | None = None):
     """dq in q's dtype: dQ = dS K."""
-    _, ds = _dscores(q, k, v, do, lse, delta, causal, scale)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
-    return dq.to(q.dtype)
+    _, ds = _dscores(q, k, v, do, lse, delta, causal, scale, window)
+    return _pv(ds.to(k.dtype), k).to(q.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -180,7 +251,8 @@ def _strides(x: torch.Tensor) -> list[int]:
 def _check_cuda(*xs: torch.Tensor) -> None:
     """What the kernels take: CUDA tensors of one dtype (f32 or bf16), one
     device, [B, L, H, D] with a contiguous last dimension, D ≤ MAX_D. The
-    first two are q and k (one width), the rest v (and dO)."""
+    first two are q and k (one width), the rest v (and dO); k and v hold a
+    divisor of q's heads."""
     dtype, dev = xs[0].dtype, xs[0].device
     if dev.type != "cuda":
         raise ValueError(f"flash kernels run on CUDA tensors, got {dev}")
@@ -198,6 +270,31 @@ def _check_cuda(*xs: torch.Tensor) -> None:
                 f"the CUDA flash kernels take head dims up to D = {MAX_D}, got {x.shape[-1]}")
     if xs[1].shape[-1] != xs[0].shape[-1]:
         raise ValueError("flash kernels need q and k of one head dim")
+    _check_heads(xs[0], xs[1], xs[2])
+
+
+def _check_heads(q, k, v) -> None:
+    H, Hk = q.shape[2], k.shape[2]
+    if v.shape[2] != Hk or H % Hk:
+        raise ValueError(f"k and v need one head count that divides q's {H}, got "
+                         f"{Hk} and {v.shape[2]}")
+
+
+def _check_band(q, k, v, window) -> None:
+    """A band (a window, or H_kv < H) runs only where the kernels have one:
+    bf16 at D = D_v ≤ 128; anywhere else this raises."""
+    band = window is not None or k.shape[2] != q.shape[2]
+    if band and not (q.dtype == torch.bfloat16 and q.shape[-1] == v.shape[-1] <= _DC):
+        raise ValueError(
+            "a window or fewer K/V heads than query heads runs only on the bf16 kernels at "
+            f"D = D_v <= {_DC}, got {q.dtype} at D = {q.shape[-1]}, D_v = {v.shape[-1]}")
+
+
+def _count_launch(kernel: str, q, k, window, Dqk: int, Dv: int) -> None:
+    _counts["launches"][kernel] += 1
+    _counts["narrow_v"][kernel] += Dv != Dqk
+    _counts["window"][kernel] += window is not None
+    _counts["grouped"][kernel] += k.shape[2] != q.shape[2]
 
 
 def _contig_last(x: torch.Tensor) -> torch.Tensor:
@@ -244,13 +341,23 @@ def _layout(q, k, v, do=None):
     return q, k, v, do, Dqk, Dv
 
 
-def flash_fwd(q, k, v, causal: bool, scale: float):
+def _count_tiles(q, causal: bool, window: int | None) -> None:
+    if torch._C._current_graph_task_id() != -1:  # a recompute in a backward
+        return
+    slices = q.shape[0] * q.shape[2] * int(causal)  # a causal launch's (b, h) slices
+    visited, full = tile_pairs(q.shape[1], window)
+    _counts["tile_pairs"] += slices * visited
+    _counts["causal_tile_pairs"] += slices * full
+
+
+def flash_fwd(q, k, v, causal: bool, scale: float, window: int | None = None):
     """Forward kernel: (out [B, Lq, H, D_v], lse f32 [B·H, Lq])."""
+    _count_tiles(q, causal, window)
     if q.device.type == "cpu":
-        return flash_fwd_reference(q, k, v, causal, scale)
-    global fwd_launches, fwd_narrow_v
+        return flash_fwd_reference(q, k, v, causal, scale, window)
     q, k, v = map(_contig_last, (q, k, v))
     _check_cuda(q, k, v)
+    _check_band(q, k, v, window)
     B, Lq, H, _ = q.shape
     Dv = v.shape[-1]
     Lk = k.shape[1]
@@ -261,53 +368,52 @@ def flash_fwd(q, k, v, causal: bool, scale: float):
         "flash_fwd", "pgt_flash_fwd", q.device,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
         B, H, Lq, Lk, Dqk_k, Dv_k, *_strides(q), *_strides(k), *_strides(v),
-        float(scale), int(causal), _DTYPES[q.dtype],
+        float(scale), int(causal), _DTYPES[q.dtype], k.shape[2], window or 0,
     )
-    fwd_launches += 1
-    fwd_narrow_v += Dv_k != Dqk_k
+    _count_launch("flash_fwd", q, k, window, Dqk_k, Dv_k)
     return out[..., :Dv], lse
 
 
-def _bwd_args(q, k, v, do):
+def _bwd_args(q, k, v, do, window):
     q, k, v, do = map(_contig_last, (q, k, v, do))
     _check_cuda(q, k, v, do)
     if do.shape[-1] != v.shape[-1]:
         raise ValueError("flash kernels need dO of v's head dim")
+    _check_band(q, k, v, window)
     return _layout(q, k, v, do)
 
 
-def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float):
-    """dK/dV kernel: (dk [B, Lk, H, D_qk], dv [B, Lk, H, D_v]) in the
+def flash_bwd_dkv(q, k, v, do, lse, delta, causal: bool, scale: float,
+                  window: int | None = None):
+    """dK/dV kernel: (dk [B, Lk, H_kv, D_qk], dv [B, Lk, H_kv, D_v]) in the
     input dtype."""
     if q.device.type == "cpu":
-        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal, scale)
-    global bwd_dkv_launches, bwd_dkv_narrow_v
+        return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal, scale, window)
     Dqk, Dv = q.shape[-1], v.shape[-1]
-    q, k, v, do, Dqk_k, Dv_k = _bwd_args(q, k, v, do)
+    q, k, v, do, Dqk_k, Dv_k = _bwd_args(q, k, v, do, window)
     B, Lq, H, _ = q.shape
-    Lk = k.shape[1]
+    Lk, Hk = k.shape[1], k.shape[2]
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
-    dk = torch.empty((B, Lk, H, Dqk_k), dtype=k.dtype, device=k.device)
-    dv = torch.empty((B, Lk, H, Dv_k), dtype=v.dtype, device=v.device)
+    dk = torch.empty((B, Lk, Hk, Dqk_k), dtype=k.dtype, device=k.device)
+    dv = torch.empty((B, Lk, Hk, Dv_k), dtype=v.dtype, device=v.device)
     build.launch(
         "flash_bwd", "pgt_flash_bwd_dkv", q.device,
         q.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         k.data_ptr(), v.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         B, H, Lq, Lk, Dqk_k, Dv_k, *_strides(q), *_strides(do), *_strides(k), *_strides(v),
-        float(scale), int(causal), _DTYPES[q.dtype],
+        float(scale), int(causal), _DTYPES[q.dtype], Hk, window or 0,
     )
-    bwd_dkv_launches += 1
-    bwd_dkv_narrow_v += Dv_k != Dqk_k
+    _count_launch("flash_bwd_dkv", q, k, window, Dqk_k, Dv_k)
     return dk[..., :Dqk], dv[..., :Dv]
 
 
-def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
+def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float,
+                 window: int | None = None):
     """dQ kernel: dq [B, Lq, H, D_qk] in the input dtype."""
     if q.device.type == "cpu":
-        return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale)
-    global bwd_dq_launches, bwd_dq_narrow_v
+        return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale, window)
     Dqk = q.shape[-1]
-    q, k, v, do, Dqk_k, Dv_k = _bwd_args(q, k, v, do)
+    q, k, v, do, Dqk_k, Dv_k = _bwd_args(q, k, v, do, window)
     B, Lq, H, _ = q.shape
     Lk = k.shape[1]
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
@@ -317,10 +423,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal: bool, scale: float):
         q.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         k.data_ptr(), v.data_ptr(), dq.data_ptr(),
         B, H, Lq, Lk, Dqk_k, Dv_k, *_strides(q), *_strides(do), *_strides(k), *_strides(v),
-        float(scale), int(causal), _DTYPES[q.dtype],
+        float(scale), int(causal), _DTYPES[q.dtype], k.shape[2], window or 0,
     )
-    bwd_dq_launches += 1
-    bwd_dq_narrow_v += Dv_k != Dqk_k
+    _count_launch("flash_bwd_dq", q, k, window, Dqk_k, Dv_k)
     return dq[..., :Dqk]
 
 
@@ -338,11 +443,11 @@ class _Flash(torch.autograd.Function):
     pass and the dQ pass."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
+    def forward(ctx, q, k, v, causal, scale, window):
         with region("pgt.flash.fwd"):
-            out, lse = flash_fwd(q, k, v, causal, scale)
+            out, lse = flash_fwd(q, k, v, causal, scale, window)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.window = causal, scale, window
         return out
 
     @staticmethod
@@ -351,9 +456,10 @@ class _Flash(torch.autograd.Function):
             q, k, v, out, lse = ctx.saved_tensors
             do = do.to(q.dtype)
             delta = softmax_delta(out, do)
-            dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
-            dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+            args = (lse, delta, ctx.causal, ctx.scale, ctx.window)
+            dk, dv = flash_bwd_dkv(q, k, v, do, *args)
+            dq = flash_bwd_dq(q, k, v, do, *args)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(
@@ -362,6 +468,7 @@ def flash_attention(
     v: torch.Tensor,
     causal: bool = False,
     scale: float | None = None,
+    window: int | None = None,
 ) -> torch.Tensor:
     """Fused attention, [B, L, H, D] (the layout :func:`attention` uses).
 
@@ -369,6 +476,10 @@ def flash_attention(
     (past 128 in 128-wide slices of the output columns). v may be narrower
     or wider than q and k: the output is [B, Lq, H, D_v] (in bf16 at D_v ≤
     128 < D_qk ≤ 192 on the narrow-V path, see the module's docstring).
+    k and v may hold H_kv heads, a divisor of q's H (grouped-query
+    attention), and ``window`` W keeps the pairs ``0 <= i - j < W`` of a
+    causal launch (a sliding window); on the card both take the bf16
+    kernels at D = D_v ≤ 128, and any other path raises.
     ``causal`` requires Lq == Lk (self-attention alignment). The default
     scale is D_qk^-0.5. The output comes back in the input dtype.
     Differentiable through the dK/dV and dQ kernels."""
@@ -376,5 +487,8 @@ def flash_attention(
     Lk = k.shape[1]
     if causal and Lq != Lk:
         raise ValueError("causal flash_attention requires Lq == Lk")
+    if window is not None and (not causal or int(window) < 1):
+        raise ValueError(f"a window needs causal attention and W >= 1, got {window}")
+    _check_heads(q, k, v)
     scale_ = scale if scale is not None else D**-0.5
-    return _Flash.apply(q, k, v, causal, scale_)
+    return _Flash.apply(q, k, v, causal, scale_, None if window is None else int(window))

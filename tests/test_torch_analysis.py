@@ -100,6 +100,7 @@ GL1_CASES = {
     "numpy_any": ("if np.any(np.asarray([width]) > 0): pass", []),
     "host_tensor": ("t = torch.as_tensor(np.ones(3))", []),
     "profiler_flag": ("if torch.autograd._profiler_enabled(): pass", []),
+    "graph_task_id": ("if torch._C._current_graph_task_id() == -1: pass", []),
 }
 
 
@@ -300,14 +301,14 @@ GL5_CASES = {
     "floor_divided_grid": (
         "flash_fwd.cu", "const dim3 grid(B * H, (Lq + TC_BM - 1) / TC_BM);",
         "const dim3 grid(B * H, Lq / TC_BM);", 1,
-        "flash_fwd_tc_kernel<DP><<<", "GL501", 3),
+        "flash_fwd_tc_kernel<DP, BAND><<<", "GL501", 6),
     "grid_divided_by_another_tile": (
         "ring_matmul.cu", "(N + pgt::TN - 1) / pgt::TN", "(N + pgt::TK - 1) / pgt::TK", 1,
         "ring_matmul_tc_kernel<<<", "GL501", 1),
     "not_a_ceiling_division": (
-        "flash_bwd.cu", "const dim3 grid(B * H, (Lk + TC_BK - 1) / TC_BK);",
-        "const dim3 grid(B * H, (Lk + TC_BK - 1) / TC_BQ);", 1,
-        "flash_bwd_dkv_tc_kernel<DP><<<", "GL501", 3),
+        "flash_bwd.cu", "const dim3 grid(B * (H / group), (Lk + TC_BK - 1) / TC_BK);",
+        "const dim3 grid(B * (H / group), (Lk + TC_BK - 1) / TC_BQ);", 1,
+        "flash_bwd_dkv_tc_kernel<DP, BAND><<<", "GL501", 6),
     "grid_with_no_division": (
         "ring_matmul.cu", "(unsigned)tiles_m, (unsigned)batch", "(unsigned)M, (unsigned)batch",
         1, "ring_matmul_tc_kernel<<<", "GL501", 1),
@@ -327,9 +328,9 @@ GL5_CASES = {
         "(Lq + TC_DQ_BQ - 1) / TC_DQ_BQ, n_chunks(D, DC));", 1,
         "flash_bwd_dq_tc_wide_kernel<CW><<<", "GL501", 1),
     "block_is_not_launch_bounds": (
-        "flash_fwd.cu", "flash_fwd_tc_kernel<DP><<<grid, TC_THREADS, smem, stream>>>",
-        "flash_fwd_tc_kernel<DP><<<grid, 2 * TC_THREADS, smem, stream>>>", 1,
-        "flash_fwd_tc_kernel<DP><<<", "GL502", 3),
+        "flash_fwd.cu", "flash_fwd_tc_kernel<DP, BAND><<<grid, TC_THREADS, smem, stream>>>",
+        "flash_fwd_tc_kernel<DP, BAND><<<grid, 2 * TC_THREADS, smem, stream>>>", 1,
+        "flash_fwd_tc_kernel<DP, BAND><<<", "GL502", 6),
     "launch_bounds_changed": (
         "ring_matmul.cu", "__global__ void __launch_bounds__(THREADS)",
         "__global__ void __launch_bounds__(THREADS / 2)", 1,
@@ -338,8 +339,8 @@ GL5_CASES = {
         "ring_matmul.cu", "constexpr int TK = 32;", "constexpr int TK = 64;", 1,
         "ring_matmul_tc_kernel<<<", "GL502", 1),
     "one_instantiation_over_227_kb": (
-        "flash_fwd.cu", "return pgt::launch_fwd_tc<48>(", "return pgt::launch_fwd_tc<512>(", 1,
-        "flash_fwd_tc_kernel<DP><<<", "GL502", 1),
+        "flash_fwd.cu", ": pgt::launch_fwd_tc<48, 0>(", ": pgt::launch_fwd_tc<512, 0>(", 1,
+        "flash_fwd_tc_kernel<DP, BAND><<<", "GL502", 1),
 }
 
 
@@ -358,9 +359,10 @@ def test_gl5_mutated_launch_fires_at_its_line(tmp_path, case):
 
 def test_gl5_resolves_the_real_launches():
     launches = {(lc.name, lc.launcher): lc for lc in launch_model(str(CSRC))}
-    assert len(launches) == 31
-    fwd = launches[("flash_fwd_tc_kernel<128>", "launch_fwd_tc")]
-    assert (fwd.block, fwd.threads, fwd.smem()) == (128, 128, 2 * (64 + 4 * 64) * 136)
+    assert len(launches) == 40
+    for band in (0, 1):  # the band instantiation takes the shared memory it always had
+        fwd = launches[(f"flash_fwd_tc_kernel<128,{band}>", "launch_fwd_tc")]
+        assert (fwd.block, fwd.threads, fwd.smem()) == (128, 128, 2 * (64 + 4 * 64) * 136)
     ring = launches[("ring_matmul_tc_kernel", "pgt_ring_matmul")]
     assert (ring.block, ring.smem()) == (256, 2 * 8 * 128 * 34 + 2 * 8 * 128 * 48)
     assert axis_tiles(ring.kernel_fn, ring.kernel_env()) == {"x": 64, "y": 64}

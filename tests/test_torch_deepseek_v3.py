@@ -127,7 +127,7 @@ def test_shares_add_up_to_the_uncut_layer():
     x, wg, s_gu, s_down, e_gu, e_down = _moe_layer_inputs()
     bias = torch.zeros(CFG.n_experts)
     parts = sum(_port_share(x, wg, bias, e_gu, e_down, range(i, i + 4)) for i in (0, 4, 8, 12))
-    shared = dv._swiglu(x, s_gu, s_down)
+    shared = dv.swiglu_mlp(x, s_gu, s_down)
     whole = rd.routed_and_shared(x, (wg, s_gu, s_down, e_gu, e_down), bias,
                                  dict(PORT, experts_held=[0, 16]), torch.matmul)
     torch.testing.assert_close(parts + shared, whole, rtol=1e-5, atol=1e-5)
@@ -464,11 +464,11 @@ def moon_tree(tmp_path_factory):
 
 SHARED_FAULT = '''
 import pygrid_tpu_torch.models.deepseek_v3 as M
-_real = M._swiglu
+_real = M.swiglu_mlp
 def _no_shared(x, w_gu, w_down):
     out = _real(x, w_gu, w_down)
     return out * 0 if w_down.shape[0] == {width} else out
-M._swiglu = _no_shared
+M.swiglu_mlp = _no_shared
 '''
 
 

@@ -99,11 +99,13 @@ def build_library(out_dir: Path, names=("flash_fwd", "flash_bwd")) -> Path:
     return lib
 
 
-def run_cases(lib_path: str) -> dict:
+def run_cases(lib_path: str, cases: dict = CASES) -> dict:
     """Each case through the emulated kernels, launched as the wrappers in
     pygrid_tpu_torch.parallel.flash_attention launch them, against the plain
     versions: {case: {output: [max abs err, elements outside tolerance]}}
-    and whether dK/dV and dQ each gave the same bits twice."""
+    and whether dK/dV and dQ each gave the same bits twice. A case may end
+    in (H_kv, window): k and v at H_kv heads, and the band's width (None:
+    none); without them k and v hold H heads and there is no window."""
     import ctypes
 
     import numpy as np
@@ -118,7 +120,8 @@ def run_cases(lib_path: str) -> dict:
         for fn, argtypes in build.LIBRARIES[lib_name][1].items():
             getattr(lib, fn).argtypes = argtypes
     results = {}
-    for case, (B, Lq, Lk, H, D, Dv, causal, views, dt) in CASES.items():
+    for case, (B, Lq, Lk, H, D, Dv, causal, views, dt, *band) in cases.items():
+        Hk, window = band or (H, None)
         dtype = getattr(torch, dt)
         rng = np.random.default_rng(Lq * 1000 + D + Dv)
 
@@ -129,20 +132,20 @@ def run_cases(lib_path: str) -> dict:
             qkv = rnd(B, Lq, 3, H, D)
             q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2, :, :Dv]
         else:
-            q, k, v = rnd(B, Lq, H, D), rnd(B, Lk, H, D), rnd(B, Lk, H, Dv)
+            q, k, v = rnd(B, Lq, H, D), rnd(B, Lk, Hk, D), rnd(B, Lk, Hk, Dv)
         do = rnd(B, Lq, H, Dv)
         scale = D**-0.5
-        out_r, lse_r = fa.flash_fwd_reference(q, k, v, causal, scale)
+        out_r, lse_r = fa.flash_fwd_reference(q, k, v, causal, scale, window)
         delta = fa.softmax_delta(out_r, do).contiguous()
-        dk_r, dv_r = fa.flash_bwd_dkv_reference(q, k, v, do, lse_r, delta, causal, scale)
-        dq_r = fa.flash_bwd_dq_reference(q, k, v, do, lse_r, delta, causal, scale)
+        dk_r, dv_r = fa.flash_bwd_dkv_reference(q, k, v, do, lse_r, delta, causal, scale, window)
+        dq_r = fa.flash_bwd_dq_reference(q, k, v, do, lse_r, delta, causal, scale, window)
 
         qp, kp, vp, dop, Dk, Dvk = fa._layout(q, k, v, do)
-        tail = (float(scale), int(causal), fa._DTYPES[dtype], None)
+        tail = (float(scale), int(causal), fa._DTYPES[dtype], Hk, window or 0, None)
         widths = (B, H, Lq, Lk, Dk, Dvk)
 
-        def nan(L, width):
-            return torch.full((B, L, H, width), float("nan")).to(dtype)
+        def nan(L, width, heads=H):
+            return torch.full((B, L, heads, width), float("nan")).to(dtype)
 
         out, lse = nan(Lq, Dvk), torch.full((B * H, Lq), float("nan"))
         build.check(lib.pgt_flash_fwd(
@@ -151,7 +154,7 @@ def run_cases(lib_path: str) -> dict:
             "pgt_flash_fwd")
         dkv = []
         for _ in range(2):
-            dk, dv = nan(Lk, Dk), nan(Lk, Dvk)
+            dk, dv = nan(Lk, Dk, Hk), nan(Lk, Dvk, Hk)
             build.check(lib.pgt_flash_bwd_dkv(
                 qp.data_ptr(), dop.data_ptr(), lse_r.data_ptr(), delta.data_ptr(),
                 kp.data_ptr(), vp.data_ptr(), dk.data_ptr(), dv.data_ptr(),
